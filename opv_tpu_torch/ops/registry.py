@@ -1,0 +1,65 @@
+"""Dispatch between the hand-written CUDA kernels and their plain twins.
+
+The device of the input decides: a CPU tensor runs the twin, a CUDA tensor
+runs the kernel, and a kernel that fails to build or launch raises — there
+is no silent fallback that could hide the device or a kernel.  The Viterbi
+radix (2 or 4, default 4) comes from OPV_VITERBI_RADIX or
+set_viterbi_radix(); both radices decode identically.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from opv_tpu_torch.ops import symbol_soft as _soft
+from opv_tpu_torch.ops import viterbi as _vit
+
+_radix = int(os.environ.get("OPV_VITERBI_RADIX", "4"))
+
+
+def set_viterbi_radix(radix: int) -> None:
+    global _radix
+    if radix not in (2, 4):
+        raise ValueError(f"radix must be 2 or 4, got {radix}")
+    _radix = radix
+
+
+def get_viterbi_radix() -> int:
+    return _radix
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type == "cpu":
+        return "twin"
+    raise ValueError(f"no kernel or twin for device {t.device}")
+
+
+def viterbi_batch(soft: torch.Tensor):
+    """(B, 2144) int32 -> (bits (B, 1072) uint8, metrics (B,) int32)."""
+    if _route(soft) == "cuda":
+        return _vit.CUDA_KERNELS[_radix](soft.to(torch.int32).contiguous())
+    return _vit.viterbi_reference(soft, _radix)
+
+
+def symbol_soft(rows, kern, resc, phi, nsym: int) -> torch.Tensor:
+    """The fused soft stage (ops/symbol_soft.py contract) -> (C, nsym)."""
+    if _route(rows) == "cuda":
+        return _soft.symbol_soft_cuda(rows, kern, resc, phi, nsym)
+    return _soft.symbol_soft_reference(rows, kern, resc, phi, nsym)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each CUDA kernel since the last reset."""
+    return {"viterbi_r4": _vit.viterbi_r4_cuda.launches,
+            "viterbi_r2": _vit.viterbi_r2_cuda.launches,
+            "symbol_soft": _soft.symbol_soft_cuda.launches}
+
+
+def reset_launch_counts() -> None:
+    _vit.viterbi_r4_cuda.launches = 0
+    _vit.viterbi_r2_cuda.launches = 0
+    _soft.symbol_soft_cuda.launches = 0

@@ -1,0 +1,98 @@
+"""The locked-grid soft stage: hand-written CUDA kernel (csrc/symbol_soft.cu)
+and its plain PyTorch twin, one contract:
+
+    rows  (C, M, 80) float32 or int8 window rows (row s = samples
+          [40s, 40s+40) as interleaved I/Q; rows of a channel contiguous)
+    kern  (C, 80, 8) float32 columns, or int8 round(k*127) for int8 rows
+    resc  (C,) float32 rescale of the correlation (1 for float32 rows)
+    phi   (C, 2, 2) float32 e^{-j inc_k 40} per tone, as [tone][re, im]
+    -> soft (C, nsym) float32,
+       |A_2(s) + phi_2 B_2(s+1)|^2 - |A_1(s) + phi_1 B_1(s+1)|^2
+
+with ab = rows @ kern per channel (columns [ReA ReA ReB ReB ImA ImA ImB
+ImB]).  Replaces opv_tpu/ops/pallas/correlate.py::symbol_corr_pallas
+(_corr_kernel) together with _symbol_soft_batch's combine.  raw=True
+returns the (C, nsym+1, 8) correlation instead (int32 for int8 rows), so
+the int8 dot can be held exactly against the twin's integer contraction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opv_tpu_torch.ops import build
+from opv_tpu_torch.rx.fast import combine
+
+_ROW = 80
+
+
+def correlate_reference(rows: torch.Tensor, kern: torch.Tensor,
+                        nsym: int) -> torch.Tensor:
+    """Plain (C, nsym+1, 8) correlation: float32 einsum for float rows; for
+    int8 rows an exact int32 contraction (widened before the product, one
+    channel at a time: integer matmuls are not available on every device)."""
+    rows = rows[:, : nsym + 1]
+    if rows.dtype == torch.int8:
+        k = kern.to(torch.int32)
+        return torch.stack([
+            (rows[c].to(torch.int32)[:, :, None] * k[c]).sum(1, dtype=torch.int32)
+            for c in range(rows.shape[0])])
+    return torch.einsum("cst,cto->cso", rows.to(torch.float32), kern)
+
+
+def combine_reference(ab: torch.Tensor, resc: torch.Tensor,
+                      phi: torch.Tensor) -> torch.Tensor:
+    """(C, nsym+1, 8) correlation -> (C, nsym) soft values."""
+    return combine(ab.to(torch.float32) * resc[:, None, None],
+                   torch.view_as_complex(phi))
+
+
+def symbol_soft_reference(rows, kern, resc, phi, nsym: int,
+                          raw: bool = False) -> torch.Tensor:
+    """The plain twin (any device)."""
+    ab = correlate_reference(rows, kern, nsym)
+    return ab if raw else combine_reference(ab, resc, phi)
+
+
+def symbol_soft_cuda(rows: torch.Tensor, kern: torch.Tensor,
+                     resc: torch.Tensor, phi: torch.Tensor, nsym: int,
+                     raw: bool = False) -> torch.Tensor:
+    """Launch the fused soft-stage kernel; same contract as the twin."""
+    c = rows.shape[0]
+    int8 = rows.dtype == torch.int8
+    if not rows.is_cuda:
+        raise ValueError("the CUDA soft-stage kernel needs CUDA tensors")
+    if rows.dtype not in (torch.float32, torch.int8):
+        raise ValueError(f"rows must be float32 or int8, got {rows.dtype}")
+    if rows.dim() != 3 or rows.shape[2] != _ROW or rows.stride(2) != 1 \
+            or rows.stride(1) != _ROW:
+        raise ValueError("rows must be (C, M, 80) with contiguous rows")
+    if not 0 < nsym < rows.shape[1]:
+        raise ValueError(f"nsym={nsym} needs 0 < nsym < M={rows.shape[1]}")
+    if int8 and (rows.stride(0) % 4 or rows.data_ptr() % 4):
+        raise ValueError("int8 rows need a 4-byte aligned channel stride")
+    want_k = torch.int8 if int8 else torch.float32
+    for name, t, shape, dt in (("kern", kern, (c, _ROW, 8), want_k),
+                               ("resc", resc, (c,), torch.float32),
+                               ("phi", phi, (c, 2, 2), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous() \
+                or t.device != rows.device:
+            raise ValueError(f"{name} must be a contiguous {shape} {dt} "
+                             f"tensor on {rows.device}")
+    if raw:
+        out = torch.empty((c, nsym + 1, 8),
+                          dtype=torch.int32 if int8 else torch.float32,
+                          device=rows.device)
+    else:
+        out = torch.empty((c, nsym), dtype=torch.float32, device=rows.device)
+    lib = build.library()
+    err = lib.opv_symbol_soft(rows.data_ptr(), rows.stride(0), int(int8),
+                              kern.data_ptr(), resc.data_ptr(), phi.data_ptr(),
+                              out.data_ptr(), c, nsym, int(raw),
+                              build.stream_ptr(rows))
+    build.check(lib, err, "symbol_soft")
+    symbol_soft_cuda.launches += 1
+    return out
+
+
+symbol_soft_cuda.launches = 0

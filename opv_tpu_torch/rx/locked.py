@@ -1,0 +1,408 @@
+"""Locked-grid multichannel receiver (batch form), on tensors.
+
+A continuous OPV transmission places one frame every 86,720 samples at a
+fixed sample phase, and 86,720 % 40 == 0, so every frame shares the timing
+phase r = p0 mod 40.  The receiver therefore splits into:
+
+  1. acquisition (rx_locked): coarse CFO grid + feed-forward refinement,
+     dense tone correlation and dilated sync correlation over the first
+     two frame intervals -> the first sync p0 per channel, then a deep
+     fold of the dense sync correlation for sub-sample timing (frac);
+  2. the steady body (_locked_body, also rx_locked_steady): the soft stage
+     at the symbol grid only (ops.registry.symbol_soft — the fused CUDA
+     kernel on the card), frame slicing + per-frame sync quality, and the
+     batched Viterbi frame finisher (ops.registry.viterbi_batch).
+
+`samples` is (C, N) complex64, (C, N, 2) float I/Q pairs, or (C, M, 80)
+window rows (row s = samples [40s, 40s+40) as interleaved I/Q) in float32
+or int8 (values = wire samples / INT8_SCALE, or / a per-channel `scale`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from opv_tpu_torch.config import CONFIG
+from opv_tpu_torch.ops import registry
+from opv_tpu_torch.rx.cfo import estimate_cfo_batch
+from opv_tpu_torch.rx.fast import (dense_soft, dense_sync, phase_rot,
+                                   real_columns, tone_vectors)
+from opv_tpu_torch.rx.frame_decoder import decode_payloads
+from opv_tpu_torch.rx.sync import normalized_sync, sync_pattern
+
+_TWO_PI = 2.0 * math.pi
+_SPS = CONFIG.samples_per_symbol
+_SB = CONFIG.sync_bits
+_EB = CONFIG.encoded_bits
+_FS = CONFIG.frame_symbols
+_SPF = _FS * _SPS
+
+#: int8 window-row quantization step: int16 wire samples of amplitude
+#: 16383 map to +-127 exactly (16383 / 129 = 127).  The soft stage rescales
+#: its integer dot by INT8_SCALE/127, so downstream thresholds see
+#: wire-scale values.
+INT8_SCALE = 129.0
+
+#: frame intervals the batch acquisition's timing refinement folds
+REFINE_FOLD_CAP = 128
+
+#: static bias of the smoothed 3-point parabola on the clean folded sync
+#: correlation (calibrated from the air interface; same constant as the
+#: JAX package's rx/locked.py)
+_PB_BIAS = 0.0409839434
+
+
+def _slice_rows(x: torch.Tensor, starts: torch.Tensor, length: int) -> torch.Tensor:
+    """(C, N) -> (C, length), row c taken from starts[c].  A start past
+    N - length clamps back into range (it does not pad), as the JAX
+    package's dynamic_slice does."""
+    n = x.shape[1]
+    st = torch.clamp(starts.to(torch.int64), 0, max(n - length, 0))
+    idx = st[:, None] + torch.arange(length, device=x.device)[None, :]
+    return x.gather(1, idx)
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True per row (0 where none): argmax over uint8,
+    since argmax rejects bool and both frameworks return the first max."""
+    return torch.argmax(mask.to(torch.uint8), dim=-1)
+
+
+def _masked_argmax(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    neg = torch.full_like(x, -math.inf)
+    return torch.argmax(torch.where(keep, x, neg), dim=-1)
+
+
+def acquire_grid(raw: torch.Tensor) -> torch.Tensor:
+    """(C, M) dense sync correlation -> (C,) int32 first sync position:
+    the earliest position of the first frame interval reaching 90% of the
+    interval's maximum, refined to the raw peak within one symbol."""
+    window = raw[:, :_SPF]
+    wmax = window.amax(dim=-1, keepdim=True)
+    first = _first_true(window >= 0.9 * wmax)[:, None]
+    idx = torch.arange(window.shape[-1], device=raw.device)[None, :]
+    near = (idx >= first) & (idx < first + _SPS)
+    return _masked_argmax(window, near).to(torch.int32)
+
+
+def hunt_grid(raw: torch.Tensor, norm: torch.Tensor, stride: int = 1):
+    """Earliest verified sync over the whole dense range: hunt thresholds
+    (norm >= 0.85 and raw >= 5000) AND the locked threshold one frame
+    later.  Returns ((C,) p0, (C,) found, (C,) p0_unverified, (C,)
+    found_unverified), p0 in sample units."""
+    cand_u = (norm >= CONFIG.sync_hunt_norm_thresh) & \
+             (raw >= CONFIG.sync_hunt_raw_thresh)
+    recheck = norm >= CONFIG.sync_locked_norm_thresh
+    m = raw.shape[-1]
+    spf_u = _SPF // stride
+    nxt = torch.cat([recheck[:, spf_u:],
+                     torch.zeros_like(recheck[:, : min(spf_u, m)])], dim=1)
+    cand = cand_u & nxt
+    idx = torch.arange(m, device=raw.device)[None, :]
+    sym_u, half_u = _SPS // stride, _SPS // (2 * stride)
+
+    def first_peak(c):
+        found = c.any(dim=-1)
+        first = _first_true(c)[:, None]
+        # refine to the raw peak within one symbol centred on the first
+        # qualifying position (the normalized metric saturates on a plateau)
+        near = (idx >= first - half_u) & (idx < first + sym_u - half_u)
+        return (_masked_argmax(raw, near) * stride).to(torch.int32), found
+
+    p0, found = first_peak(cand)
+    p0_u, found_u = first_peak(cand_u)
+    return p0, found, p0_u, found_u
+
+
+def _window_rows_of(samples: torch.Tensor, nsym: int) -> torch.Tensor:
+    """(C, M, 80) rows covering symbols 0..nsym from any accepted input
+    form; a view (no copy) for complex64, pairs and window rows."""
+    c = samples.shape[0]
+    if samples.dim() == 3 and samples.shape[-1] == 2 * _SPS:
+        return samples
+    if samples.dim() == 3:                                    # (C, N, 2)
+        return samples[:, : (nsym + 1) * _SPS].reshape(c, nsym + 1, 2 * _SPS)
+    win = samples[:, : (nsym + 1) * _SPS].to(torch.complex64)
+    return torch.view_as_real(win).reshape(c, nsym + 1, 2 * _SPS)
+
+
+def soft_stage_operands(samples: torch.Tensor, r: torch.Tensor,
+                        freq_offset: torch.Tensor, nsym: int, scale=None,
+                        frac=None):
+    """The soft stage's operands (rows, kern, resc, phi) in the contract of
+    ops/symbol_soft.py, built in plain torch: the per-channel tone vectors,
+    the tail mask at phase r with the `frac` blend, and the int8 kernel
+    round(k*127) with its rescale for int8 rows."""
+    c = samples.shape[0]
+    dev = samples.device
+    e, incs = tone_vectors(freq_offset)                        # (C, 40, 2)
+    t_idx = torch.arange(_SPS, device=dev)[None, :]
+    rr = r.to(torch.int64)[:, None]
+    if frac is None:
+        tail_w = (t_idx >= rr).to(torch.float32)
+    else:
+        f = frac.to(torch.float32)[:, None]
+        tail_w = torch.where(t_idx > rr, torch.ones_like(f),
+                             torch.where(t_idx == rr, 1.0 - f,
+                                         torch.zeros_like(f)))
+    tail_w = tail_w[:, :, None]
+    kern = real_columns(torch.cat([tail_w * e, (1.0 - tail_w) * e], dim=-1))
+    rows = _window_rows_of(samples, nsym)
+    phi = torch.view_as_real(phase_rot(incs)).contiguous()      # (C, 2, 2)
+    if rows.dtype == torch.int8:
+        kern = torch.round(kern * 127.0).to(torch.int8)
+        if scale is None:
+            resc = torch.full((c,), np.float32(INT8_SCALE / 127.0), device=dev)
+        else:
+            resc = scale.to(device=dev, dtype=torch.float32) / 127.0
+    else:
+        rows = rows.to(torch.float32)
+        resc = torch.ones((c,), dtype=torch.float32, device=dev)
+    return rows, kern.contiguous(), resc.contiguous(), phi
+
+
+def _symbol_soft_batch(samples: torch.Tensor, r: torch.Tensor,
+                       freq_offset: torch.Tensor, nsym: int, scale=None,
+                       frac=None) -> torch.Tensor:
+    """Symbol-grid tone correlation at per-channel phase r -> (C, nsym).
+
+    The phase-aligned window of symbol s spans the tail of static row s
+    and the head of row s+1, so with A/B the tone correlations of each row
+    masked at t >= r / t < r,
+
+        corr(s) = e^{j inc r} (A(s) + e^{-40j inc} B(s+1)),
+
+    and the leading phase drops inside |corr|^2.  `frac` (C,) in [0, 1)
+    blends the mask kernels of r and r+1 (linear interpolation of the
+    stream at r + frac): the tap t == r weighs 1-frac on the tail side and
+    frac on the head side.  int8 rows use the int8 kernel round(k*127) and
+    an exact integer dot, rescaled by INT8_SCALE/127 (or scale/127 per
+    channel).  The correlation and the combine run in registry.symbol_soft
+    (the fused CUDA kernel for CUDA tensors)."""
+    ops = soft_stage_operands(samples, r, freq_offset, nsym, scale, frac)
+    return registry.symbol_soft(*ops, nsym)
+
+
+def _extract_frames(soft: torch.Tensor, k0: torch.Tensor, n_frames: int):
+    """(C, nsym) soft stream -> (payloads (C, F, 2144), sync_q (C, F),
+    sync_raw (C, F)).  The stream is zero-padded so a sync anywhere in the
+    window still yields full frames; frames reaching into the padding read
+    zeros and fail the sync-quality gate."""
+    c, nsym = soft.shape
+    span = n_frames * _FS
+    padded = F.pad(soft, (0, span))
+    w = _slice_rows(padded, torch.clamp(k0, 0, nsym), span)
+    fr = w.reshape(c, n_frames, _FS)
+    sync_w = fr[:, :, :_SB]
+    pat = torch.as_tensor(sync_pattern(), dtype=soft.dtype, device=soft.device)
+    raw = sync_w @ pat
+    q = normalized_sync(raw, sync_w.abs().sum(-1))
+    return fr[:, :, _SB:], q, raw
+
+
+def _locked_body(samples, p0, freq_offset, n_frames: int, scale=None,
+                 frac=None):
+    c = samples.shape[0]
+    windowed = samples.dim() == 3 and samples.shape[-1] == 2 * _SPS
+    n = samples.shape[1] * _SPS if windowed else samples.shape[1]
+    p0 = p0.to(torch.int32)
+    r = p0 % _SPS
+    k0 = (p0 - r) // _SPS
+    nsym = (n - _SPS) // _SPS
+    soft = _symbol_soft_batch(samples, r, freq_offset, nsym, scale, frac)
+    payloads, q, raw = _extract_frames(soft, k0, n_frames)
+    frames, metrics, ok = decode_payloads(payloads.reshape(-1, _EB))
+    ok = ok.reshape(c, n_frames)
+    # flywheel: a sub-threshold sync still emits its frame while any of the
+    # preceding sync_miss_limit slots re-checked OK
+    w = CONFIG.sync_miss_limit + 1
+    qp = F.pad(q, (w - 1, 0), value=-math.inf)
+    q_trail = torch.stack([qp[:, i:i + n_frames] for i in range(w)]).amax(0)
+    fv = ok & (q_trail >= CONFIG.sync_locked_norm_thresh)
+    return dict(
+        frames=frames.reshape(c, n_frames, CONFIG.frame_bytes),
+        metrics=metrics.reshape(c, n_frames),
+        frame_valid=fv, sync_q=q, sync_raw=raw, decode_ok=ok, p0=p0,
+        freq_offset=freq_offset,
+        frac=(frac.to(torch.float32) if frac is not None
+              else torch.zeros(c, dtype=torch.float32, device=p0.device)),
+        n_decoded=fv.sum(),
+    )
+
+
+def rx_locked_steady(samples: torch.Tensor, p0: torch.Tensor,
+                     freq_offset: torch.Tensor, n_frames: int, scale=None,
+                     frac=None):
+    """Steady-state hot loop with the grid (p0, frac) and CFO known: blocks
+    that advance by whole frame intervals keep p0.  Returns the same dict
+    as rx_locked."""
+    return _locked_body(samples, p0, freq_offset, n_frames, scale, frac)
+
+
+def rx_locked(samples: torch.Tensor, n_frames: int, freq_offset=None,
+              estimate_cfo_flag: bool = True):
+    """(C, N) complex64 -> n_frames decoded frames per channel.
+
+    N must cover p0 + n_frames full frames.  Returns dict with frames
+    (C, F, 134) uint8, metrics (C, F) int32, frame_valid / decode_ok (C, F)
+    bool, sync_q / sync_raw (C, F), p0 (C,) int32, freq_offset (C,) and
+    frac (C,) float32, n_decoded."""
+    c, n = samples.shape
+    dev = samples.device
+    refine = False
+    if freq_offset is None:
+        if estimate_cfo_flag:
+            freq_offset = estimate_cfo_batch(samples).to(torch.float32)
+            refine = True
+        else:
+            freq_offset = torch.zeros(c, dtype=torch.float32, device=dev)
+    freq_offset = freq_offset.to(device=dev, dtype=torch.float32)
+    # acquisition on the first two frame intervals: the hunt's verified
+    # earliest candidate needs one more frame for its re-check
+    acq_len = min(n, (2 * _FS + _SB + 2) * _SPS)
+
+    def acquire(foff):
+        raw, norm = dense_sync(dense_soft(samples[:, :acq_len], foff))
+        p0_hunt, found, _, _ = hunt_grid(raw, norm)
+        return torch.where(found, p0_hunt, acquire_grid(raw)), found
+
+    p0, found = acquire(freq_offset)
+    if refine:
+        # correct the grid estimator's bias with the feed-forward AFC
+        # discriminator (twice), then re-hunt at the corrected offset
+        freq_offset = refine_cfo_locked(samples, p0, freq_offset)
+        freq_offset = refine_cfo_locked(samples, p0, freq_offset)
+        p0, found = acquire(freq_offset)
+        freq_offset = refine_cfo_locked(samples, p0, freq_offset)
+    # sub-sample timing from one dense pass folded over up to 128 frames;
+    # where the 2-frame hunt verified nothing, the folded argmax also
+    # supplies the grid phase
+    refine_len = min(n, (min(n_frames, REFINE_FOLD_CAP) + 1) * _SPF
+                     + (_SB + 2) * _SPS)
+    raw_r, _ = dense_sync(dense_soft(samples[:, :refine_len], freq_offset))
+    fcount = raw_r.shape[1] // _SPF
+    if fcount >= 2:
+        fold = raw_r[:, : fcount * _SPF].reshape(c, fcount, _SPF).sum(1)
+        p0 = torch.where(found, p0, torch.argmax(fold, -1).to(torch.int32))
+    p0, frac = refine_timing_from_raw(raw_r, p0)
+    return _locked_body(samples, p0, freq_offset, n_frames, frac=frac)
+
+
+def refine_cfo_locked(samples: torch.Tensor, p0: torch.Tensor,
+                      freq_offset: torch.Tensor) -> torch.Tensor:
+    """Feed-forward CFO refinement at the locked grid -> (C,) float32 Hz.
+
+    The AFC discriminator, batched: one frame of per-symbol tone
+    correlations from the sync; consecutive symbols where the same tone
+    dominates advance in phase by 2*pi*df*40/fs, so the power-weighted mean
+    of the pairwise increments reads the residual offset df directly.  The
+    correction is clamped to the reference's AFC authority (+-2 kHz)."""
+    seg = _slice_rows(samples, p0, _SPF)
+    c = seg.shape[0]
+    e, incs = tone_vectors(freq_offset)
+    corr = torch.einsum("cst,ctk->csk", seg.reshape(c, _FS, _SPS),
+                        e.to(seg.dtype))                          # (C, S, 2)
+    p = corr.abs() ** 2
+    dom = p[..., 1] > p[..., 0]
+    sel = torch.where(dom, corr[..., 1], corr[..., 0])
+    same = (dom[:, 1:] == dom[:, :-1]).to(torch.float32)
+    adv = phase_rot(incs)
+    # the per-symbol kernel restarts at phase 0 each symbol, so rotate out
+    # the dominant tone's own per-symbol advance
+    adv_dom = torch.where(dom[:, 1:], adv[:, 1:2], adv[:, 0:1])
+    pair = sel[:, 1:] * torch.conj(sel[:, :-1]) * adv_dom
+    pm = p.amax(-1)
+    w = same * torch.minimum(pm[:, 1:], pm[:, :-1])
+    ang = torch.atan2((pair.imag * w).sum(-1), (pair.real * w).sum(-1))
+    df = ang * np.float32(CONFIG.sample_rate / (_TWO_PI * _SPS))
+    df = torch.clamp(df, -CONFIG.afc_clamp_hz, CONFIG.afc_clamp_hz)
+    return (freq_offset + df).to(torch.float32)
+
+
+def _fold_est(fold: torch.Tensor) -> torch.Tensor:
+    """(C, n_off+2) folded sync correlation -> (C,) float32 offset of the
+    apex centre relative to fold[:, 0]: [1, 1] smoothing (the MSK apex is a
+    2-sample plateau), first argmax over [0, n_off-1], 3-point parabola
+    minus its calibrated bias; at pk == 0 the smoothed bin's own centre."""
+    n_off = fold.shape[-1] - 2
+    sm = fold[:, :-1] + fold[:, 1:]
+    pk = torch.argmax(sm[:, :n_off], dim=-1)
+    r0 = sm.gather(1, pk[:, None])[:, 0]
+    rm = torch.where(pk > 0, sm.gather(1, (pk - 1).clamp(min=0)[:, None])[:, 0],
+                     torch.zeros_like(r0))
+    rp = sm.gather(1, (pk + 1)[:, None])[:, 0]
+    denom = rm - 2.0 * r0 + rp
+    ok = denom.abs() > 1e-30
+    safe = torch.where(ok, denom, torch.ones_like(denom))
+    delta = torch.where(ok, 0.5 * (rm - rp) / safe, torch.zeros_like(denom))
+    delta = torch.where(pk == 0, torch.zeros_like(delta),
+                        torch.clamp(delta, -0.5, 0.5) - np.float32(_PB_BIAS))
+    return pk.to(torch.float32) + delta + 0.5
+
+
+def fold_est_np(fold: np.ndarray) -> np.ndarray:
+    """Numpy twin of _fold_est for host-side use on accumulated folds."""
+    fold = np.asarray(fold, np.float64)
+    n_off = fold.shape[-1] - 2
+    sm = fold[:, :-1] + fold[:, 1:]
+    pk = np.argmax(sm[:, :n_off], axis=-1).astype(np.int64)
+    rows = np.arange(fold.shape[0])
+    r0 = sm[rows, pk]
+    rm = np.where(pk > 0, sm[rows, np.maximum(pk - 1, 0)], 0.0)
+    rp = sm[rows, pk + 1]
+    denom = rm - 2.0 * r0 + rp
+    with np.errstate(divide="ignore", invalid="ignore"):
+        delta = np.where(np.abs(denom) > 1e-30, 0.5 * (rm - rp) / denom, 0.0)
+    delta = np.where(pk == 0, 0.0, np.clip(delta, -0.5, 0.5) - _PB_BIAS)
+    return (pk + delta + 0.5).astype(np.float32)
+
+
+def refine_timing_from_raw(raw: torch.Tensor, p0: torch.Tensor):
+    """Sub-sample timing from a dense sync correlation (C, M): fold every
+    complete frame interval, take the +-20-sample segment around p0 and
+    refine its apex.  Returns ((C,) int32 p0 >= 0, (C,) float32 frac)."""
+    c, m = raw.shape
+    f = m // _SPF
+    half = _SPS // 2
+    n_off = 2 * half + 1
+    if f < 1:
+        return p0, torch.full((c,), 0.5, dtype=torch.float32, device=raw.device)
+    fold = raw[:, : f * _SPF].reshape(c, f, _SPF).sum(1)
+    fold2 = torch.cat([fold, fold[:, : n_off + 2]], dim=1)
+    seg = _slice_rows(fold2, (p0.to(torch.int64) - half) % _SPF, n_off + 2)
+    pos = torch.clamp(p0.to(torch.float32) + (_fold_est(seg) - half), min=0.0)
+    fl = torch.floor(pos)
+    return fl.to(torch.int32), (pos - fl).to(torch.float32)
+
+
+def state_from_numpy(d, device=None) -> dict:
+    """Receiver state from a numpy mapping (e.g. the JAX package's rx_locked
+    output): p0 -> int32, freq_offset / frac / scale -> float32 tensors on
+    `device`.  frac and scale are None when absent."""
+    def get(k, dt):
+        v = d.get(k)
+        if v is None:
+            return None
+        return torch.as_tensor(np.array(v), dtype=dt, device=device)
+
+    return dict(p0=get("p0", torch.int32),
+                freq_offset=get("freq_offset", torch.float32),
+                frac=get("frac", torch.float32),
+                scale=get("scale", torch.float32))
+
+
+def to_window_rows(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """(C, N) complex -> (C, N//40, 80) window rows (the steady body's
+    buffer form): float rows keep the values; int8 rows hold
+    clip(round(value / INT8_SCALE), -127, 127), half to even."""
+    c, n = x.shape
+    pairs = torch.view_as_real(x[:, : (n // _SPS) * _SPS])
+    rows = pairs.reshape(c, n // _SPS, 2 * _SPS)
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(rows / INT8_SCALE), -127, 127
+                           ).to(torch.int8)
+    return rows.to(dtype).contiguous()
