@@ -15,8 +15,10 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               rx_locked_steady on float32 and int8 window rows (radix 4,
               and int8 again with radix 2): 1280/1280 frames valid, metric
               0, byte-equal to the transmitted frames; every kernel's
-              launch counter > 0 over that run; steady-block time (CUDA
-              events, median of 7 after warm-up) and peak memory
+              launch counter > 0 over that run; steady-block latency
+              (CUDA events, median of 7 single blocks after warm-up),
+              throughput (20 blocks back to back between two CUDA events)
+              and peak memory
   6. profile  torch.profiler over three steady blocks per buffer type:
               device time by op and the device-busy share of the block
               (Chrome traces go to build/chip_smoke/)
@@ -44,6 +46,7 @@ FRAMES = 20
 SOFT_RTOL = 1e-5
 KERNEL_REPS = 20
 STEADY_REPS = 7
+THROUGHPUT_BLOCKS = 20
 
 
 def log(msg: str) -> None:
@@ -131,11 +134,15 @@ def phase_viterbi(dev):
     stats = {}
     for radix in (4, 2):
         kern = vit.CUDA_KERNELS[radix]
+        # differing bits per frame, or the metric difference, whichever is
+        # larger, over every B checked
+        err = 0
         for b in (1, 131, 1280):
             soft, u = viterbi_inputs(b, dev, rng)
             bits_k, met_k = kern(soft)
             bits_t, met_t = vit.viterbi_reference(soft, radix)
-            torch.cuda.synchronize()
+            err = max(err, int((bits_k != bits_t).sum(1).max()),
+                      int((met_k - met_t).abs().max()))
             if not (torch.equal(bits_k, bits_t) and torch.equal(met_k, met_t)):
                 bad = (bits_k != bits_t).any(1) | (met_k != met_t)
                 raise AssertionError(
@@ -149,7 +156,7 @@ def phase_viterbi(dev):
         soft = soft[:1280].contiguous()
         ms = cuda_ms(lambda: kern(soft), KERNEL_REPS)
         plain = cuda_ms(lambda: vit.viterbi_reference(soft, radix), 2)
-        stats[radix] = dict(ms=ms, plain_ms=plain, max_abs_err=0)
+        stats[radix] = dict(ms=ms, plain_ms=plain, max_abs_err=err)
         log(f"[viterbi] radix {radix}: bit-identical to the twin at B=1,131,"
             f"{soft.shape[0]} (random, clean, tie stress); B={soft.shape[0]}: "
             f"kernel {ms:.4f} ms, twin {plain:.2f} ms")
@@ -275,11 +282,16 @@ def phase_main(x, frames, delays, dev, card):
         f"memory {peak / 2**30:.2f} GiB ({card})")
     steady = {}
     for name, rows in (("f32", rows_f), ("int8", rows_q)):
-        ms = median_ms(lambda: rx_locked_steady(rows, p0, foff, FRAMES,
-                                                frac=frac), STEADY_REPS)
-        steady[name] = ms
-        log(f"[main] steady {name}: {ms:.3f} ms/block, "
-            f"{c * n / ms / 1e3:.1f} Msamples/s ({card})")
+        def block():
+            return rx_locked_steady(rows, p0, foff, FRAMES, frac=frac)
+        latency = median_ms(block, STEADY_REPS)
+        window = cuda_ms(block, THROUGHPUT_BLOCKS)
+        steady[name] = dict(latency_ms=latency, ms_per_block=window,
+                            msamples_s=c * n / window / 1e3)
+        log(f"[main] steady {name}: latency {latency:.3f} ms (median of "
+            f"{STEADY_REPS} single blocks); {THROUGHPUT_BLOCKS} blocks back to "
+            f"back {window:.3f} ms/block = {c * n / window / 1e3:.1f} "
+            f"Msamples/s ({card})")
     return launches, steady, peak, (rows_f, rows_q, p0, foff, frac)
 
 

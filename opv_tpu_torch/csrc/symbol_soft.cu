@@ -65,30 +65,63 @@ __device__ __forceinline__ void split(const Acc* acc, float scale, float* a, flo
   b[2] = (float)acc[6] * scale; b[3] = (float)acc[7] * scale;
 }
 
-__device__ __forceinline__ void dot_f32(const float* x, const float4* ks, float* acc) {
-#pragma unroll
-  for (int o = 0; o < kCols; ++o) acc[o] = 0.f;
-#pragma unroll 8
-  for (int t = 0; t < kRow; ++t) {
-    const float v = x[t];
-    const float4 k0 = ks[2 * t], k1 = ks[2 * t + 1];
-    acc[0] = fmaf(v, k0.x, acc[0]); acc[1] = fmaf(v, k0.y, acc[1]);
-    acc[2] = fmaf(v, k0.z, acc[2]); acc[3] = fmaf(v, k0.w, acc[3]);
-    acc[4] = fmaf(v, k1.x, acc[4]); acc[5] = fmaf(v, k1.y, acc[5]);
-    acc[6] = fmaf(v, k1.z, acc[6]); acc[7] = fmaf(v, k1.w, acc[7]);
-  }
-}
+// Row-type traits: how a row is staged in shared memory (Word, kWords per
+// row), how the kernel columns are laid out there (Cols), and the 8-column
+// dot with its accumulator type (Acc).
+struct F32Rows {
+  using Elem = float;
+  using Word = float;
+  using Acc = float;
+  static constexpr int kWords = kRow;
+  struct Cols { float4 k[kRow * 2]; };  // tap t: k[2t] = cols 0-3, k[2t+1] = 4-7
 
-__device__ __forceinline__ void dot_i8(const int* x, const int (*kp)[kRowW], int* acc) {
-#pragma unroll
-  for (int o = 0; o < kCols; ++o) acc[o] = 0;
-#pragma unroll 4
-  for (int w = 0; w < kRowW; ++w) {
-    const int v = x[w];
-#pragma unroll
-    for (int o = 0; o < kCols; ++o) acc[o] = __dp4a(v, kp[o][w], acc[o]);
+  static __device__ __forceinline__ void load_cols(Cols& ks, const float* kc, int tid) {
+    for (int i = tid; i < kRow * kCols; i += kTile) reinterpret_cast<float*>(ks.k)[i] = kc[i];
   }
-}
+  static __device__ __forceinline__ void dot(const float* x, const Cols& ks, float* acc) {
+#pragma unroll
+    for (int o = 0; o < kCols; ++o) acc[o] = 0.f;
+#pragma unroll 8
+    for (int t = 0; t < kRow; ++t) {
+      const float v = x[t];
+      const float4 k0 = ks.k[2 * t], k1 = ks.k[2 * t + 1];
+      acc[0] = fmaf(v, k0.x, acc[0]); acc[1] = fmaf(v, k0.y, acc[1]);
+      acc[2] = fmaf(v, k0.z, acc[2]); acc[3] = fmaf(v, k0.w, acc[3]);
+      acc[4] = fmaf(v, k1.x, acc[4]); acc[5] = fmaf(v, k1.y, acc[5]);
+      acc[6] = fmaf(v, k1.z, acc[6]); acc[7] = fmaf(v, k1.w, acc[7]);
+    }
+  }
+};
+
+struct I8Rows {
+  using Elem = int8_t;
+  using Word = int;  // four taps, tap 4w in the low byte
+  using Acc = int;
+  static constexpr int kWords = kRowW;
+  struct Cols { int k[kCols][kRowW]; };
+
+  // pack column o's taps 4w..4w+3 into one word, tap 4w in the low byte,
+  // matching the little-endian byte order of a row word
+  static __device__ __forceinline__ void load_cols(Cols& ks, const int8_t* kc, int tid) {
+    for (int i = tid; i < kCols * kRowW; i += kTile) {
+      const int o = i / kRowW, w = i - o * kRowW;
+      uint32_t v = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v |= (uint32_t)(uint8_t)kc[(4 * w + j) * kCols + o] << (8 * j);
+      ks.k[o][w] = (int)v;
+    }
+  }
+  static __device__ __forceinline__ void dot(const int* x, const Cols& ks, int* acc) {
+#pragma unroll
+    for (int o = 0; o < kCols; ++o) acc[o] = 0;
+#pragma unroll 4
+    for (int w = 0; w < kRowW; ++w) {
+      const int v = x[w];
+#pragma unroll
+      for (int o = 0; o < kCols; ++o) acc[o] = __dp4a(v, ks.k[o][w], acc[o]);
+    }
+  }
+};
 
 template <typename Acc>
 __device__ __forceinline__ void store_raw(Acc* out, const Acc* acc, int c, int nsym, int s) {
@@ -97,85 +130,41 @@ __device__ __forceinline__ void store_raw(Acc* out, const Acc* acc, int c, int n
   for (int o = 0; o < kCols; ++o) dst[o] = acc[o];
 }
 
+template <typename R>
 __global__ void __launch_bounds__(kTile)
-symbol_soft_f32(const float* __restrict__ rows, long long cstride,
-                const float* __restrict__ kern, const float* __restrict__ resc,
-                const float* __restrict__ phi, void* __restrict__ out, int nsym, int raw) {
-  __shared__ float xs[(kTile + 1) * (kRow + 1)];
-  __shared__ float4 ks[kRow * 2];
+symbol_soft(const typename R::Elem* __restrict__ rows, long long cstride,
+            const typename R::Elem* __restrict__ kern, const float* __restrict__ resc,
+            const float* __restrict__ phi, void* __restrict__ out, int nsym, int raw) {
+  using Word = typename R::Word;
+  using Acc = typename R::Acc;
+  constexpr int kStride = R::kWords + 1;  // odd row stride: conflict-free reads
+  __shared__ Word xs[(kTile + 1) * kStride];
+  __shared__ typename R::Cols ks;
   __shared__ float bsh[kTile + 1][4];
   const int c = blockIdx.y, s0 = blockIdx.x * kTile, tid = threadIdx.x;
   const int nrows = min(kTile + 1, nsym + 1 - s0);
-  const float* src = rows + (long long)c * cstride + (long long)s0 * kRow;
-  const float* kc = kern + (size_t)c * kRow * kCols;
-  for (int i = tid; i < kRow * kCols; i += kTile)
-    reinterpret_cast<float*>(ks)[i] = kc[i];
+  const Word* src = reinterpret_cast<const Word*>(rows + (long long)c * cstride +
+                                                  (long long)s0 * kRow);
+  R::load_cols(ks, kern + (size_t)c * kRow * kCols, tid);
 #pragma unroll 4
-  for (int i = tid; i < nrows * kRow; i += kTile) {
-    const int r = i / kRow;
-    xs[r * (kRow + 1) + (i - r * kRow)] = src[i];
+  for (int i = tid; i < nrows * R::kWords; i += kTile) {
+    const int r = i / R::kWords;
+    xs[r * kStride + (i - r * R::kWords)] = src[i];
   }
   __syncthreads();
   const float scale = resc[c];
-  float a[4], acc[kCols];
-  if (tid < nrows) {
-    dot_f32(xs + tid * (kRow + 1), ks, acc);
-    if (raw && (tid < kTile || s0 + tid == nsym))
-      store_raw(static_cast<float*>(out), acc, c, nsym, s0 + tid);
-    split(acc, scale, a, bsh[tid]);
-  }
-  if (tid == 0 && nrows == kTile + 1) {         // first row of the next tile
-    float b_unused[4];
-    dot_f32(xs + kTile * (kRow + 1), ks, acc);
-    if (raw && s0 + kTile == nsym) store_raw(static_cast<float*>(out), acc, c, nsym, nsym);
-    split(acc, scale, b_unused, bsh[kTile]);
-  }
-  __syncthreads();
-  const int s = s0 + tid;
-  if (!raw && s < nsym)
-    static_cast<float*>(out)[(size_t)c * nsym + s] = combine(a, bsh[tid + 1], phi + 4 * c);
-}
-
-__global__ void __launch_bounds__(kTile)
-symbol_soft_i8(const int8_t* __restrict__ rows, long long cstride,
-               const int8_t* __restrict__ kern, const float* __restrict__ resc,
-               const float* __restrict__ phi, void* __restrict__ out, int nsym, int raw) {
-  __shared__ int xs[(kTile + 1) * (kRowW + 1)];
-  __shared__ int kp[kCols][kRowW];
-  __shared__ float bsh[kTile + 1][4];
-  const int c = blockIdx.y, s0 = blockIdx.x * kTile, tid = threadIdx.x;
-  const int nrows = min(kTile + 1, nsym + 1 - s0);
-  const int* src = reinterpret_cast<const int*>(rows + (long long)c * cstride +
-                                                (long long)s0 * kRow);
-  const int8_t* kc = kern + (size_t)c * kRow * kCols;
-  // pack column o's taps 4w..4w+3 into one word, tap 4w in the low byte,
-  // matching the little-endian byte order of a row word
-  for (int i = tid; i < kCols * kRowW; i += kTile) {
-    const int o = i / kRowW, w = i - o * kRowW;
-    uint32_t v = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v |= (uint32_t)(uint8_t)kc[(4 * w + j) * kCols + o] << (8 * j);
-    kp[o][w] = (int)v;
-  }
-#pragma unroll 4
-  for (int i = tid; i < nrows * kRowW; i += kTile) {
-    const int r = i / kRowW;
-    xs[r * (kRowW + 1) + (i - r * kRowW)] = src[i];
-  }
-  __syncthreads();
-  const float scale = resc[c];
+  Acc* const raw_out = static_cast<Acc*>(out);
   float a[4];
-  int acc[kCols];
+  Acc acc[kCols];
   if (tid < nrows) {
-    dot_i8(xs + tid * (kRowW + 1), kp, acc);
-    if (raw && (tid < kTile || s0 + tid == nsym))
-      store_raw(static_cast<int*>(out), acc, c, nsym, s0 + tid);
+    R::dot(xs + tid * kStride, ks, acc);
+    if (raw) store_raw(raw_out, acc, c, nsym, s0 + tid);
     split(acc, scale, a, bsh[tid]);
   }
-  if (tid == 0 && nrows == kTile + 1) {
+  if (tid == 0 && nrows == kTile + 1) {  // first row of the next tile
     float b_unused[4];
-    dot_i8(xs + kTile * (kRowW + 1), kp, acc);
-    if (raw && s0 + kTile == nsym) store_raw(static_cast<int*>(out), acc, c, nsym, nsym);
+    R::dot(xs + kTile * kStride, ks, acc);
+    if (raw && s0 + kTile == nsym) store_raw(raw_out, acc, c, nsym, nsym);
     split(acc, scale, b_unused, bsh[kTile]);
   }
   __syncthreads();
@@ -196,13 +185,15 @@ extern "C" int opv_symbol_soft(const void* rows, long long cstride, int is_int8,
   if (channels <= 0 || nsym <= 0) return 0;
   const dim3 grid((nsym + kTile - 1) / kTile, channels), block(kTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(resc);
+  const float* ph = static_cast<const float*>(phi);
   if (is_int8)
-    symbol_soft_i8<<<grid, block, 0, st>>>(
-        static_cast<const int8_t*>(rows), cstride, static_cast<const int8_t*>(kern),
-        static_cast<const float*>(resc), static_cast<const float*>(phi), out, nsym, raw);
+    symbol_soft<I8Rows><<<grid, block, 0, st>>>(static_cast<const int8_t*>(rows), cstride,
+                                                static_cast<const int8_t*>(kern), r, ph, out,
+                                                nsym, raw);
   else
-    symbol_soft_f32<<<grid, block, 0, st>>>(
-        static_cast<const float*>(rows), cstride, static_cast<const float*>(kern),
-        static_cast<const float*>(resc), static_cast<const float*>(phi), out, nsym, raw);
+    symbol_soft<F32Rows><<<grid, block, 0, st>>>(static_cast<const float*>(rows), cstride,
+                                                 static_cast<const float*>(kern), r, ph, out,
+                                                 nsym, raw);
   return (int)cudaGetLastError();
 }

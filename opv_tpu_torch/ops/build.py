@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
 nvcc compiles every source into one shared library with a plain C
-interface, loaded through ctypes: no PyTorch headers, so a build takes
-seconds.  It happens at the first CUDA call, never at import, into
-<checkout>/build/opv_tpu_torch/ (OPV_TORCH_BUILD_DIR overrides), keyed by a
-hash of the sources and flags.  A failed build raises; nothing falls back.
+interface, loaded through ctypes: no PyTorch headers to compile.  The
+build happens at the first CUDA call, never at import, into
+<checkout>/build/opv_tpu_torch/, keyed by a hash of the sources and flags.
+A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build" / "opv_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -25,13 +26,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: and the compiler's resource report (registers, shared memory, spills)
 BUILD_INFO: dict = {}
 _lib = None
-
-
-def build_dir() -> pathlib.Path:
-    env = os.environ.get("OPV_TORCH_BUILD_DIR")
-    if env:
-        return pathlib.Path(env)
-    return CSRC.parent.parent / "build" / "opv_tpu_torch"
 
 
 def _nvcc() -> str:
@@ -54,9 +48,8 @@ def library() -> ctypes.CDLL:
     for p in srcs:
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"libopv_kernels_{digest.hexdigest()[:16]}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libopv_kernels_{digest.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")
     seconds = 0.0
     if not so.exists():
