@@ -9,7 +9,11 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
   3. viterbi  the CUDA Viterbi (radix 4 and 2) bit-identical to its plain
               twin at B = 1, 131, 1280 on random, clean and tie-stress input
   4. soft     the fused soft-stage kernel against its twin at the main
-              path's shapes: float32 within tolerance, the int8 dot exact
+              path's shapes: float32 within tolerance, the int8 dot exact;
+              its launch configuration, time, bound (bytes moved over the
+              HBM rate), roofline share and, for float32 rows, the time of
+              torch.bmm of the correlation alone (a yardstick the port never
+              calls; PyTorch has no int8 batched matmul on the card)
   5. main     64 channels x 20 frames synthesized on the card with the
               port's TX, per-channel delays; rx_locked (acquisition), then
               rx_locked_steady on float32 and int8 window rows (radix 4,
@@ -45,6 +49,17 @@ FRAMES = 20
 #: products taken in another order, and fused multiply-adds in the combine)
 SOFT_RTOL = 1e-5
 KERNEL_REPS = 20
+#: published H100 SXM peaks (NVIDIA's H100 datasheet): HBM bytes/s, and
+#: operations/s for float32 outside the tensor cores and for int8
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
+#: int32 operations of the Viterbi per trellis state per step: two adds
+#: (each predecessor's path metric plus its branch metric), a compare of
+#: the two candidates and a select of the survivor
+VITERBI_OPS_PER_STATE_STEP = 4
+#: ... and per step, shared by all 64 states: the four distinct branch
+#: metrics of a rate-1/2 code (one per pair of expected output bits)
+VITERBI_OPS_PER_STEP = 4
 STEADY_REPS = 7
 THROUGHPUT_BLOCKS = 20
 
@@ -81,22 +96,37 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def nvidia_smi(query: str) -> str:
+    smi = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0].strip()
+
+
+def bound(nbytes: float, nops: float, ops_per_s: float):
+    """(bound ms, what bounds it): the larger of bytes over the HBM rate
+    and operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; the port's "
                          "main path needs one GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0].strip()
+    card = nvidia_smi("name,power.limit")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the float32 twins need "
                              "full float32")
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda} | "
         f"count {torch.cuda.device_count()}")
-    return card
+    # the Viterbi's issue bound: int32 lanes (64 per SM) at the max SM clock
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return card, sms * 64 * sm_mhz * 1e6
 
 
 def phase_build():
@@ -127,7 +157,7 @@ def viterbi_inputs(b: int, dev, rng):
     return soft[:b].contiguous() if b < soft.shape[0] else soft, u
 
 
-def phase_viterbi(dev):
+def phase_viterbi(dev, int_ops_per_s: float):
     import torch
     from opv_tpu_torch.ops import viterbi as vit
     rng = np.random.default_rng(11)
@@ -156,10 +186,17 @@ def phase_viterbi(dev):
         soft = soft[:1280].contiguous()
         ms = cuda_ms(lambda: kern(soft), KERNEL_REPS)
         plain = cuda_ms(lambda: vit.viterbi_reference(soft, radix), 2)
-        stats[radix] = dict(ms=ms, plain_ms=plain, max_abs_err=err)
+        b = soft.shape[0]
+        nbytes = b * (soft.shape[1] * 4 + soft.shape[1] // 2 + 4)
+        nops = b * (soft.shape[1] // 2) * (64 * VITERBI_OPS_PER_STATE_STEP
+                                           + VITERBI_OPS_PER_STEP)
+        bound_ms, bound_by = bound(nbytes, nops, int_ops_per_s)
+        stats[radix] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
         log(f"[viterbi] radix {radix}: bit-identical to the twin at B=1,131,"
-            f"{soft.shape[0]} (random, clean, tie stress); B={soft.shape[0]}: "
-            f"kernel {ms:.4f} ms, twin {plain:.2f} ms")
+            f"{b} (random, clean, tie stress); B={b}: kernel {ms:.4f} ms, "
+            f"twin {plain:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return stats
 
 
@@ -219,15 +256,30 @@ def phase_soft(x, dev):
                 raise AssertionError(f"soft f32 correlation: {raw_err:.4g} > "
                                      f"{SOFT_RTOL} x {raw_ref:.4g}")
             raw_note = f"correlation max err {raw_err:.4g} of {raw_ref:.4g}"
+        rows, kern = ops[0][:, : nsym + 1], ops[1]
+        nbytes = ss.moved_bytes(*ops, nsym)
+        bound_ms, bound_by = bound(nbytes, 2 * rows.numel() * 8,
+                                   PEAK_OPS_PER_S[name])
         ms = cuda_ms(lambda: ss.symbol_soft_cuda(*ops, nsym), KERNEL_REPS)
         plain = cuda_ms(lambda: ss.symbol_soft_reference(*ops, nsym), 3)
+        library = (cuda_ms(lambda: torch.bmm(rows, kern), KERNEL_REPS)
+                   if dt == torch.float32 else None)
+        cfg = ss.kernel_config(dt == torch.int8)
         stats[name] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
-                           max_rel_err=err / scale_ref)
+                           max_rel_err=err / scale_ref, bound_ms=bound_ms,
+                           bound_by=bound_by, roofline=bound_ms / ms,
+                           library_ms=library, config=cfg)
+        lib_note = (f"torch.bmm of the correlation {library:.4f} ms"
+                    if library is not None else
+                    "library_ms null: PyTorch has no int8 batched matmul on "
+                    "the card")
         log(f"[soft] {name} rows ({c}, {rows_all.shape[1]}, 80), nsym {nsym}: "
             f"max |kernel - twin| {err:.4g} of max|soft| {scale_ref:.4g} "
             f"(rel {err / scale_ref:.3g}); {raw_note}; kernel {ms:.4f} ms, "
-            f"twin {plain:.3f} ms")
-        del rows_all, ops
+            f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+            f"roofline {100 * bound_ms / ms:.1f}%; {lib_note}; twin "
+            f"{plain:.3f} ms; config {cfg}")
+        del rows_all, ops, rows, kern
     return stats
 
 
@@ -336,10 +388,10 @@ def phase_profile(state, card, out_dir="build/chip_smoke"):
 
 def main() -> int:
     import torch
-    card = phase_device()
+    card, int_ops_per_s = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    vit = phase_viterbi(dev)
+    vit = phase_viterbi(dev, int_ops_per_s)
     x, frames, delays = synthesize(dev)
     soft = phase_soft(x, dev)
     launches, steady, peak, state = phase_main(x, frames, delays, dev, card)
@@ -351,13 +403,14 @@ def main() -> int:
         dict(name="viterbi_r2", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:145",
              launches=launches["viterbi_r2"], **vit[2]),
-        dict(name="symbol_soft", route="cuda",
-             source="opv_tpu_torch/csrc/symbol_soft.cu",
-             replaces="opv_tpu/ops/pallas/correlate.py:37",
-             launches=launches["symbol_soft"], **soft["f32"],
-             int8_ms=soft["int8"]["ms"], int8_plain_ms=soft["int8"]["plain_ms"],
-             int8_max_abs_err=soft["int8"]["max_abs_err"]),
     ]
+    # one kernel template, counted per row type where it launches
+    for name, rows in (("f32", "float32"), ("int8", "int8")):
+        key = f"symbol_soft[{rows}]"
+        kernels.append(dict(
+            name=key, route="cuda", source="opv_tpu_torch/csrc/symbol_soft.cu",
+            replaces="opv_tpu/ops/pallas/correlate.py:37",
+            launches=launches[key], **soft[name]))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
                       "peak_bytes": peak}), flush=True)
     print(card, flush=True)

@@ -18,32 +18,69 @@
 // What bounds it on the card: bytes.  Each window row is read once
 // (320 B float32, 80 B int8) for 8 dot products of 80 taps: 2 flop/B in
 // float32, far under the H100's ~20 flop/B float32 balance point.  At 64
-// channels x ~43.5k rows a block reads ~890 MB (float32) or ~222 MB (int8).
+// channels x 44,228 rows a call moves 917 MB (float32 rows) or 238 MB (int8
+// rows), soft output included: 0.274 / 0.071 ms at 3.35 TB/s.  Reaching
+// that rate takes ~25 KB of loads in flight per SM (Little's law at ~0.8 us
+// of HBM latency); a block that loads a tile, waits and then computes keeps
+// far less in flight.
 //
-// Design: one block of 128 threads per (channel, tile of 128 symbols).  The
-// tile's 129 rows (the next tile's first row supplies B(s+1) of the last
-// symbol) are one contiguous span of memory, loaded once with coalesced
-// loads into shared memory, padded to an odd row stride (81 floats / 21
-// words) so one-row-per-thread reads are bank-conflict free.  Each thread
-// computes its row's 8 dot products; the B halves go through shared memory
-// to the neighbouring thread for the combine.  int8 rows use __dp4a (exact
-// s8 x s8 -> s32 accumulate, as the TPU's int8 matmul) and rescale in float32
-// before the combine.  A `raw` mode writes the (C, nsym+1, 8) correlation
-// instead of the soft stream (float32, or the exact int32 dot for int8
-// rows) so tests can hold the dot itself against a plain contraction.
+// Design: persistent blocks (SMs x blocks per SM, from the occupancy API)
+// each walk a contiguous range of the flattened (channel, tile) space in
+// order.  A tile is T = threads x rows-per-thread symbols; its rows are one
+// contiguous span of memory, copied by 16-byte cp.async into a ring of
+// kStages tile buffers in dynamic shared memory, so tile i+1 (and later)
+// is in flight while tile i is computed.  Rows sit at a padded stride (84
+// floats: a quarter warp's float4 reads hit banks 20*tid mod 32, all
+// distinct; int8 rows at 20 words are already conflict-free), and every
+// thread reads the same tap at once, so the column reads are broadcasts.
+// A channel's columns are loaded once when the block enters the channel.
+// The B half of row s+1 reaches symbol s's thread through shared memory;
+// the last symbol of a tile takes it from the next tile's first row, which
+// the ring already holds: that row is read once.  Only a block's last tile
+// (and a channel's last tile) loads its closing row itself.  A channel
+// whose base is not 16-byte aligned (odd-N complex input, a slice of a
+// longer buffer) is copied in 8- or 4-byte pieces instead.  int8 rows use
+// __dp4a (exact s8 x s8 -> s32 accumulate, as the TPU's int8 matmul) and
+// rescale in float32 before the combine.  A `raw` mode writes the (C,
+// nsym+1, 8) correlation instead of the soft stream (float32, or the exact
+// int32 dot for int8 rows) so tests can hold the dot itself against a plain
+// contraction.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 128;     // symbols per block = threads per block
-constexpr int kRow = 80;       // values per window row
-constexpr int kCols = 8;       // correlation columns
+constexpr int kRow = 80;         // values per window row
+constexpr int kCols = 8;         // correlation columns
 constexpr int kRowW = kRow / 4;  // int8 row in 32-bit words
+constexpr int kMaxDevices = 64;
+
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(W)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename V>
+__device__ __forceinline__ auto lane(const V& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
 
 // a = {ReA0, ReA1, ImA0, ImA1} of row s, b = {ReB0, ReB1, ImB0, ImB1} of
 // row s+1, ph = {re0, im0, re1, im1}.
-__device__ __forceinline__ float combine(const float* a, const float* b, const float* ph) {
+__device__ __forceinline__ float combine(float4 a4, float4 b4, const float* ph) {
+  const float a[4] = {a4.x, a4.y, a4.z, a4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
   float p[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
@@ -55,73 +92,176 @@ __device__ __forceinline__ float combine(const float* a, const float* b, const f
   return p[1] - p[0];
 }
 
-// The tile-level epilogue shared by both row types: keep row tid's A half
-// in registers, hand its B half to thread tid-1 through shared memory.
+// Split a row's correlation into its A half (kept by the row's thread) and
+// its B half (handed to the previous symbol), rescaled to float32.
 template <typename Acc>
-__device__ __forceinline__ void split(const Acc* acc, float scale, float* a, float* b) {
-  a[0] = (float)acc[0] * scale; a[1] = (float)acc[1] * scale;
-  a[2] = (float)acc[4] * scale; a[3] = (float)acc[5] * scale;
-  b[0] = (float)acc[2] * scale; b[1] = (float)acc[3] * scale;
-  b[2] = (float)acc[6] * scale; b[3] = (float)acc[7] * scale;
+__device__ __forceinline__ void split(const Acc* acc, float scale, float4& a, float4& b) {
+  a = make_float4((float)acc[0] * scale, (float)acc[1] * scale, (float)acc[4] * scale,
+                  (float)acc[5] * scale);
+  b = make_float4((float)acc[2] * scale, (float)acc[3] * scale, (float)acc[6] * scale,
+                  (float)acc[7] * scale);
 }
 
-// Row-type traits: how a row is staged in shared memory (Word, kWords per
-// row), how the kernel columns are laid out there (Cols), and the 8-column
-// dot with its accumulator type (Acc).
-struct F32Rows {
+template <int NT, int RPT, int S>
+struct Config {
+  static constexpr int kThreads = NT;        // threads per block
+  static constexpr int kRowsPerThread = RPT;
+  static constexpr int kTile = NT * RPT;     // symbols per tile
+  static constexpr int kStages = S;          // tile buffers in the ring
+};
+
+// Row-type traits: how a row sits in device and shared memory, how the
+// kernel columns are laid out in shared memory (Cols), and the 8-column dot
+// of N rows at once (one column read serves all N) with its accumulator.
+//
+// The Config<threads, rows per thread, stages> of each row type was chosen
+// by a timing sweep on the card (scripts/soft_sweep.py times copies of this
+// file with other values).  float32: 128 x 2 rows, 2 stages of 257 rows
+// (179 KB, one block per SM, 96 registers, no spills); int8: 256 x 2 rows,
+// 3 stages of 513 rows (132 KB, one block per SM, 80 registers).  The
+// other settings timed were up to 28% (float32) or 13% (int8) slower.
+struct F32Rows : Config<128, 2, 2> {
   using Elem = float;
-  using Word = float;
   using Acc = float;
-  static constexpr int kWords = kRow;
+  static constexpr int kRowBytes = kRow * 4;
+  static constexpr int kSmemRowBytes = (kRow + 4) * 4;  // 84 floats
   struct Cols { float4 k[kRow * 2]; };  // tap t: k[2t] = cols 0-3, k[2t+1] = 4-7
 
   static __device__ __forceinline__ void load_cols(Cols& ks, const float* kc, int tid) {
-    for (int i = tid; i < kRow * kCols; i += kTile) reinterpret_cast<float*>(ks.k)[i] = kc[i];
+    for (int i = tid; i < kRow * kCols; i += kThreads) reinterpret_cast<float*>(ks.k)[i] = kc[i];
   }
-  static __device__ __forceinline__ void dot(const float* x, const Cols& ks, float* acc) {
+  template <int N>
+  static __device__ __forceinline__ void dot(const unsigned char* x, int step, const Cols& ks,
+                                             float (&acc)[N][kCols]) {
 #pragma unroll
-    for (int o = 0; o < kCols; ++o) acc[o] = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < kRow; ++t) {
-      const float v = x[t];
-      const float4 k0 = ks.k[2 * t], k1 = ks.k[2 * t + 1];
-      acc[0] = fmaf(v, k0.x, acc[0]); acc[1] = fmaf(v, k0.y, acc[1]);
-      acc[2] = fmaf(v, k0.z, acc[2]); acc[3] = fmaf(v, k0.w, acc[3]);
-      acc[4] = fmaf(v, k1.x, acc[4]); acc[5] = fmaf(v, k1.y, acc[5]);
-      acc[6] = fmaf(v, k1.z, acc[6]); acc[7] = fmaf(v, k1.w, acc[7]);
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int o = 0; o < kCols; ++o) acc[i][o] = 0.f;
+#pragma unroll 2
+    for (int q = 0; q < kRow / 4; ++q) {
+      float4 v[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = reinterpret_cast<const float4*>(x + i * step)[q];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 k0 = ks.k[8 * q + 2 * j], k1 = ks.k[8 * q + 2 * j + 1];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float u = lane(v[i], j);
+          acc[i][0] = fmaf(u, k0.x, acc[i][0]); acc[i][1] = fmaf(u, k0.y, acc[i][1]);
+          acc[i][2] = fmaf(u, k0.z, acc[i][2]); acc[i][3] = fmaf(u, k0.w, acc[i][3]);
+          acc[i][4] = fmaf(u, k1.x, acc[i][4]); acc[i][5] = fmaf(u, k1.y, acc[i][5]);
+          acc[i][6] = fmaf(u, k1.z, acc[i][6]); acc[i][7] = fmaf(u, k1.w, acc[i][7]);
+        }
+      }
     }
   }
 };
 
-struct I8Rows {
+struct I8Rows : Config<256, 2, 3> {
   using Elem = int8_t;
-  using Word = int;  // four taps, tap 4w in the low byte
   using Acc = int;
-  static constexpr int kWords = kRowW;
-  struct Cols { int k[kCols][kRowW]; };
+  static constexpr int kRowBytes = kRow;
+  static constexpr int kSmemRowBytes = kRow;  // 20 words: conflict-free int4 reads
+  struct Cols { int4 k[kRowW][2]; };  // word w: k[w][0] = cols 0-3, k[w][1] = 4-7
 
   // pack column o's taps 4w..4w+3 into one word, tap 4w in the low byte,
   // matching the little-endian byte order of a row word
   static __device__ __forceinline__ void load_cols(Cols& ks, const int8_t* kc, int tid) {
-    for (int i = tid; i < kCols * kRowW; i += kTile) {
+    for (int i = tid; i < kCols * kRowW; i += kThreads) {
       const int o = i / kRowW, w = i - o * kRowW;
       uint32_t v = 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) v |= (uint32_t)(uint8_t)kc[(4 * w + j) * kCols + o] << (8 * j);
-      ks.k[o][w] = (int)v;
+      reinterpret_cast<int*>(ks.k)[w * kCols + o] = (int)v;
     }
   }
-  static __device__ __forceinline__ void dot(const int* x, const Cols& ks, int* acc) {
+  template <int N>
+  static __device__ __forceinline__ void dot(const unsigned char* x, int step, const Cols& ks,
+                                             int (&acc)[N][kCols]) {
 #pragma unroll
-    for (int o = 0; o < kCols; ++o) acc[o] = 0;
-#pragma unroll 4
-    for (int w = 0; w < kRowW; ++w) {
-      const int v = x[w];
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int o = 0; o < kCols; ++o) acc[o] = __dp4a(v, ks.k[o][w], acc[o]);
+      for (int o = 0; o < kCols; ++o) acc[i][o] = 0;
+#pragma unroll
+    for (int q = 0; q < kRowW / 4; ++q) {
+      int4 v[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = reinterpret_cast<const int4*>(x + i * step)[q];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int4 k0 = ks.k[4 * q + j][0], k1 = ks.k[4 * q + j][1];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int u = lane(v[i], j);
+          acc[i][0] = __dp4a(u, k0.x, acc[i][0]); acc[i][1] = __dp4a(u, k0.y, acc[i][1]);
+          acc[i][2] = __dp4a(u, k0.z, acc[i][2]); acc[i][3] = __dp4a(u, k0.w, acc[i][3]);
+          acc[i][4] = __dp4a(u, k1.x, acc[i][4]); acc[i][5] = __dp4a(u, k1.y, acc[i][5]);
+          acc[i][6] = __dp4a(u, k1.z, acc[i][6]); acc[i][7] = __dp4a(u, k1.w, acc[i][7]);
+        }
+      }
     }
   }
 };
+
+// Dynamic shared memory: the columns, the B halves of a tile (T+1 rows),
+// the carried A half, then the ring of kStages tiles of T+1 rows.  Every
+// part is a multiple of 16 bytes.
+template <typename R>
+struct Layout {
+  static constexpr int kStageBytes = (R::kTile + 1) * R::kSmemRowBytes;
+  static constexpr int kRing = (int)sizeof(typename R::Cols) + (R::kTile + 2) * 16;
+  static constexpr int kBytes = kRing + R::kStages * kStageBytes;
+};
+
+// One item of the flattened (channel, tile) space: tile j of channel c
+// outputs symbols s0 .. s0+nt-1 from rows s0 .. s0+nrows-1.  A tile loads
+// its closing row s0+nt only when no later tile of this block will: at the
+// end of the channel (the row is row nsym) or of the block's range.
+struct Tile {
+  int c, j, s0, nt, nrows;
+  bool last_ch;
+};
+
+__device__ __forceinline__ Tile tile_of(long long k, long long end, int ntiles, int nsym, int T) {
+  Tile t;
+  t.c = (int)(k / ntiles);
+  t.j = (int)(k - (long long)t.c * ntiles);
+  t.s0 = t.j * T;
+  t.nt = min(T, nsym - t.s0);
+  t.last_ch = t.j == ntiles - 1;
+  t.nrows = t.nt + ((t.last_ch || k == end - 1) ? 1 : 0);
+  return t;
+}
+
+template <typename R, int W>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const unsigned char* src, int nrows,
+                                          int tid) {
+  constexpr int kPer = R::kRowBytes / W;
+  const int total = nrows * kPer;
+#pragma unroll 4
+  for (int i = tid; i < total; i += R::kThreads) {
+    const int r = i / kPer;
+    cp_async<W>(dst + r * R::kSmemRowBytes + (i - r * kPer) * W, src + (size_t)i * W);
+  }
+}
+
+// Start the asynchronous copy of a tile's rows into one ring stage, in the
+// widest pieces the channel base's alignment allows (rows are multiples of
+// 16 bytes, so the base decides for the whole channel).
+template <typename R>
+__device__ __forceinline__ void issue(unsigned char* dst, const typename R::Elem* rows,
+                                      long long cstride, const Tile& t, int tid) {
+  const typename R::Elem* ch = rows + (long long)t.c * cstride;
+  const auto* src = reinterpret_cast<const unsigned char*>(ch + (long long)t.s0 * kRow);
+  const unsigned mis = (unsigned)reinterpret_cast<uintptr_t>(ch) & 15u;
+  if (mis == 0)
+    copy_rows<R, 16>(dst, src, t.nrows, tid);
+  else if ((mis & 7u) == 0)
+    copy_rows<R, 8>(dst, src, t.nrows, tid);
+  else
+    copy_rows<R, 4>(dst, src, t.nrows, tid);
+}
 
 template <typename Acc>
 __device__ __forceinline__ void store_raw(Acc* out, const Acc* acc, int c, int nsym, int s) {
@@ -131,69 +271,169 @@ __device__ __forceinline__ void store_raw(Acc* out, const Acc* acc, int c, int n
 }
 
 template <typename R>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(R::kThreads)
 symbol_soft(const typename R::Elem* __restrict__ rows, long long cstride,
             const typename R::Elem* __restrict__ kern, const float* __restrict__ resc,
-            const float* __restrict__ phi, void* __restrict__ out, int nsym, int raw) {
-  using Word = typename R::Word;
+            const float* __restrict__ phi, void* __restrict__ out, int nsym, int ntiles,
+            long long items, int raw) {
   using Acc = typename R::Acc;
-  constexpr int kStride = R::kWords + 1;  // odd row stride: conflict-free reads
-  __shared__ Word xs[(kTile + 1) * kStride];
-  __shared__ typename R::Cols ks;
-  __shared__ float bsh[kTile + 1][4];
-  const int c = blockIdx.y, s0 = blockIdx.x * kTile, tid = threadIdx.x;
-  const int nrows = min(kTile + 1, nsym + 1 - s0);
-  const Word* src = reinterpret_cast<const Word*>(rows + (long long)c * cstride +
-                                                  (long long)s0 * kRow);
-  R::load_cols(ks, kern + (size_t)c * kRow * kCols, tid);
-#pragma unroll 4
-  for (int i = tid; i < nrows * R::kWords; i += kTile) {
-    const int r = i / R::kWords;
-    xs[r * kStride + (i - r * R::kWords)] = src[i];
-  }
-  __syncthreads();
-  const float scale = resc[c];
+  using L = Layout<R>;
+  constexpr int NT = R::kThreads, RPT = R::kRowsPerThread, T = R::kTile, S = R::kStages;
+  constexpr int kRowB = R::kSmemRowBytes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& ks = *reinterpret_cast<typename R::Cols*>(smem);
+  float4* const bsh = reinterpret_cast<float4*>(smem + sizeof(typename R::Cols));
+  float4* const carry = bsh + T + 1;  // A half of the last symbol of the previous tile
+  unsigned char* const ring = smem + L::kRing;
+  const int tid = threadIdx.x;
+  const long long start = items * blockIdx.x / gridDim.x;
+  const long long end = items * (blockIdx.x + 1) / gridDim.x;
   Acc* const raw_out = static_cast<Acc*>(out);
-  float a[4];
-  Acc acc[kCols];
-  if (tid < nrows) {
-    R::dot(xs + tid * kStride, ks, acc);
-    if (raw) store_raw(raw_out, acc, c, nsym, s0 + tid);
-    split(acc, scale, a, bsh[tid]);
+  float* const soft_out = static_cast<float*>(out);
+
+#pragma unroll
+  for (int p = 0; p < S - 1; ++p) {
+    if (start + p < end)
+      issue<R>(ring + p * L::kStageBytes, rows, cstride, tile_of(start + p, end, ntiles, nsym, T),
+               tid);
+    cp_async_commit();
   }
-  if (tid == 0 && nrows == kTile + 1) {  // first row of the next tile
-    float b_unused[4];
-    R::dot(xs + kTile * kStride, ks, acc);
-    if (raw && s0 + kTile == nsym) store_raw(raw_out, acc, c, nsym, nsym);
-    split(acc, scale, b_unused, bsh[kTile]);
+  int cur_c = -1;
+  float scale = 0.f, ph[4];
+  for (long long k = start; k < end; ++k) {
+    const int it = (int)(k - start);
+    if (k + S - 1 < end)  // refill the stage computed in the previous iteration
+      issue<R>(ring + ((it + S - 1) % S) * L::kStageBytes, rows, cstride,
+               tile_of(k + S - 1, end, ntiles, nsym, T), tid);
+    cp_async_commit();
+    const Tile t = tile_of(k, end, ntiles, nsym, T);
+    if (t.c != cur_c) {  // entering a channel: its columns, rescale and phi
+      cur_c = t.c;
+      R::load_cols(ks, kern + (size_t)cur_c * kRow * kCols, tid);
+      scale = resc[cur_c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ph[i] = phi[4 * cur_c + i];
+    }
+    cp_async_wait<S - 1>();  // this thread's copies of tile k have landed
+    __syncthreads();         // ... and every thread's, and the columns
+    const unsigned char* st = ring + (it % S) * L::kStageBytes;
+    Acc acc[RPT][kCols];
+    R::template dot<RPT>(st + tid * kRowB, NT * kRowB, ks, acc);
+    float4 a[RPT], b0 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = tid + i * NT;
+      if (r < t.nrows) {
+        if (raw && (r < t.nt || t.last_ch)) store_raw(raw_out, acc[i], t.c, nsym, t.s0 + r);
+        float4 b;
+        split(acc[i], scale, a[i], b);
+        bsh[r] = b;
+        if (i == 0) b0 = b;
+      }
+    }
+    if (tid == 0 && t.nrows == T + 1) {  // the closing row of a full tile
+      Acc e[1][kCols];
+      R::template dot<1>(st + T * kRowB, 0, ks, e);
+      if (raw && t.last_ch) store_raw(raw_out, e[0], t.c, nsym, nsym);
+      float4 unused;
+      split(e[0], scale, unused, bsh[T]);
+    }
+    // the previous tile's last symbol, waiting for this tile's first row
+    if (!raw && tid == 0 && k > start && t.j > 0)
+      soft_out[(size_t)t.c * nsym + t.s0 - 1] = combine(*carry, b0, ph);
+    __syncthreads();
+    if (!raw) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = tid + i * NT;
+        if (r < t.nt) {
+          if (r + 1 < t.nrows)
+            soft_out[(size_t)t.c * nsym + t.s0 + r] = combine(a[i], bsh[r + 1], ph);
+          else
+            *carry = a[i];
+        }
+      }
+    }
+    __syncthreads();  // the stage, bsh and the columns may now be refilled
   }
-  __syncthreads();
-  const int s = s0 + tid;
-  if (!raw && s < nsym)
-    static_cast<float*>(out)[(size_t)c * nsym + s] = combine(a, bsh[tid + 1], phi + 4 * c);
+}
+
+// SMs x resident blocks per SM for kernel R on the current device, set up
+// once per device (the dynamic shared-memory limit above 48 KB included).
+template <typename R>
+cudaError_t persistent_grid(int* grid) {
+  static int cache[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cache[dev] > 0) {
+    *grid = cache[dev];
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(symbol_soft<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Layout<R>::kBytes);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, symbol_soft<R>, R::kThreads,
+                                                      Layout<R>::kBytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = sms * per_sm;
+  if (dev < kMaxDevices) cache[dev] = *grid;
+  return cudaSuccess;
+}
+
+template <typename R>
+int launch(const void* rows, long long cstride, const void* kern, const float* resc,
+           const float* phi, void* out, int channels, int nsym, int raw, cudaStream_t st) {
+  int grid = 0;
+  const cudaError_t err = persistent_grid<R>(&grid);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (nsym + R::kTile - 1) / R::kTile;
+  const long long items = (long long)channels * ntiles;
+  if (items < grid) grid = (int)items;
+  using E = typename R::Elem;
+  symbol_soft<R><<<grid, R::kThreads, Layout<R>::kBytes, st>>>(
+      static_cast<const E*>(rows), cstride, static_cast<const E*>(kern), resc, phi, out, nsym,
+      ntiles, items, raw);
+  return (int)cudaGetLastError();
+}
+
+template <typename R>
+int config(int* cfg) {
+  int grid = 0;
+  const cudaError_t err = persistent_grid<R>(&grid);
+  cfg[0] = R::kThreads;
+  cfg[1] = R::kRowsPerThread;
+  cfg[2] = R::kStages;
+  cfg[3] = Layout<R>::kBytes;
+  cfg[4] = grid;
+  return (int)err;
 }
 
 }  // namespace
 
 // rows: element pointer of row 0 of channel 0; cstride: channel stride in
-// elements (int8 rows: a multiple of 4, 4-byte-aligned base).  out: (C, nsym)
-// float32 soft values, or with raw != 0 the (C, nsym+1, 8) correlation
-// (float32, or int32 for int8 rows).  Returns cudaGetLastError().
+// elements (int8 rows: a 4-byte-aligned base and a multiple of 4).  out:
+// (C, nsym) float32 soft values, or with raw != 0 the (C, nsym+1, 8)
+// correlation (float32, or int32 for int8 rows).  Returns the first CUDA
+// error of the set-up or the launch (cudaGetLastError()).
 extern "C" int opv_symbol_soft(const void* rows, long long cstride, int is_int8,
                                const void* kern, const void* resc, const void* phi,
                                void* out, int channels, int nsym, int raw, void* stream) {
   if (channels <= 0 || nsym <= 0) return 0;
-  const dim3 grid((nsym + kTile - 1) / kTile, channels), block(kTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(resc);
   const float* ph = static_cast<const float*>(phi);
-  if (is_int8)
-    symbol_soft<I8Rows><<<grid, block, 0, st>>>(static_cast<const int8_t*>(rows), cstride,
-                                                static_cast<const int8_t*>(kern), r, ph, out,
-                                                nsym, raw);
-  else
-    symbol_soft<F32Rows><<<grid, block, 0, st>>>(static_cast<const float*>(rows), cstride,
-                                                 static_cast<const float*>(kern), r, ph, out,
-                                                 nsym, raw);
-  return (int)cudaGetLastError();
+  return is_int8 ? launch<I8Rows>(rows, cstride, kern, r, ph, out, channels, nsym, raw, st)
+                 : launch<F32Rows>(rows, cstride, kern, r, ph, out, channels, nsym, raw, st);
+}
+
+// The launch configuration for a row type on the current device: cfg[0..4]
+// = threads per block, rows per thread, ring stages, dynamic shared-memory
+// bytes per block, persistent grid (SMs x blocks per SM).
+extern "C" int opv_symbol_soft_config(int is_int8, int* cfg) {
+  return is_int8 ? config<I8Rows>(cfg) : config<F32Rows>(cfg);
 }

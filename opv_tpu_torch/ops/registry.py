@@ -53,13 +53,16 @@ def symbol_soft(rows, kern, resc, phi, nsym: int) -> torch.Tensor:
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset."""
+    """Launches of each CUDA kernel since the last reset (the soft stage
+    once per row type)."""
     return {"viterbi_r4": _vit.viterbi_r4_cuda.launches,
             "viterbi_r2": _vit.viterbi_r2_cuda.launches,
-            "symbol_soft": _soft.symbol_soft_cuda.launches}
+            **{f"symbol_soft[{rows}]": n
+               for rows, n in _soft.symbol_soft_cuda.launches.items()}}
 
 
 def reset_launch_counts() -> None:
     _vit.viterbi_r4_cuda.launches = 0
     _vit.viterbi_r2_cuda.launches = 0
-    _soft.symbol_soft_cuda.launches = 0
+    for rows in _soft.symbol_soft_cuda.launches:
+        _soft.symbol_soft_cuda.launches[rows] = 0

@@ -18,6 +18,8 @@ the int8 dot can be held exactly against the twin's integer contraction.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from opv_tpu_torch.ops import build
@@ -85,14 +87,43 @@ def symbol_soft_cuda(rows: torch.Tensor, kern: torch.Tensor,
                           device=rows.device)
     else:
         out = torch.empty((c, nsym), dtype=torch.float32, device=rows.device)
-    lib = build.library()
-    err = lib.opv_symbol_soft(rows.data_ptr(), rows.stride(0), int(int8),
-                              kern.data_ptr(), resc.data_ptr(), phi.data_ptr(),
-                              out.data_ptr(), c, nsym, int(raw),
-                              build.stream_ptr(rows))
-    build.check(lib, err, "symbol_soft")
-    symbol_soft_cuda.launches += 1
+    launch(build.library(), rows, kern, resc, phi, out, nsym, raw)
+    symbol_soft_cuda.launches["int8" if int8 else "float32"] += 1
     return out
 
 
-symbol_soft_cuda.launches = 0
+#: launches per row type (one kernel template, two instantiations)
+symbol_soft_cuda.launches = {"float32": 0, "int8": 0}
+
+
+def launch(lib: ctypes.CDLL, rows, kern, resc, phi, out, nsym: int,
+           raw: bool) -> None:
+    """Launch `lib`'s opv_symbol_soft on checked operands (no counting:
+    symbol_soft_cuda is the entry point; scripts/soft_sweep.py calls this
+    with libraries built from copies of the source)."""
+    err = lib.opv_symbol_soft(rows.data_ptr(), rows.stride(0),
+                              int(rows.dtype == torch.int8), kern.data_ptr(),
+                              resc.data_ptr(), phi.data_ptr(), out.data_ptr(),
+                              rows.shape[0], nsym, int(raw),
+                              build.stream_ptr(rows))
+    build.check(lib, err, "symbol_soft")
+
+
+def moved_bytes(rows, kern, resc, phi, nsym: int) -> int:
+    """The bytes the soft stage must move: each input read once (rows 0..
+    nsym), the (C, nsym) float32 soft stream written once."""
+    return (rows[:, : nsym + 1].numel() * rows.element_size()
+            + sum(t.numel() * t.element_size() for t in (kern, resc, phi))
+            + rows.shape[0] * nsym * 4)
+
+
+def kernel_config(int8: bool, lib: ctypes.CDLL | None = None) -> dict:
+    """The kernel's launch configuration for one row type on the current
+    CUDA device: threads per block, rows per thread, ring stages, dynamic
+    shared memory per block and the persistent grid (SMs x blocks/SM)."""
+    lib = build.library() if lib is None else lib
+    cfg = (ctypes.c_int * 5)()
+    build.check(lib, lib.opv_symbol_soft_config(int(int8), cfg),
+                "symbol_soft config")
+    return dict(zip(("threads", "rows_per_thread", "stages", "smem_bytes",
+                     "grid"), cfg))

@@ -160,6 +160,11 @@ def soft_stage_operands(samples: torch.Tensor, r: torch.Tensor,
         else:
             resc = scale.to(device=dev, dtype=torch.float32) / 127.0
     else:
+        if rows.dtype in (torch.bfloat16, torch.float16):
+            # the JAX package narrows the columns to the rows' dtype and
+            # sums in float32; the products of two narrowed values are
+            # exact in float32, so widening both gives the same dot
+            kern = kern.to(rows.dtype).to(torch.float32)
         rows = rows.to(torch.float32)
         resc = torch.ones((c,), dtype=torch.float32, device=dev)
     return rows, kern.contiguous(), resc.contiguous(), phi

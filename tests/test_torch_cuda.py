@@ -84,24 +84,68 @@ def test_viterbi_kernel_rejects_bad_input(cuda_dev):
         vit.viterbi_r2_cuda(torch.zeros((2, EB + 1), dtype=torch.int32, device=cuda_dev))
 
 
-@pytest.mark.parametrize("dtype", ["f32", "int8"])
-def test_soft_kernel_matches_twin(cuda_dev, dtype):
+def _soft_rows(case, dtype, dev, grid, tile):
+    """Window rows on the card for one case of the soft-kernel test:
+    signal      3 channels of a noisy burst (contiguous rows)
+    one_channel 1 channel of it
+    many        more channels than the kernel's persistent grid has
+                blocks, each two tiles and two rows long
+    odd_n       (3, N) complex64 with N odd: channel c of the float32 view
+                starts at byte 8*N*c, so odd channels are 8-byte aligned only
+    sliced      rows cut from a longer buffer at an offset of 4 bytes:
+                channel bases 4, 8 or 12 bytes past a 16-byte boundary"""
+    rows_dt = torch.float32 if dtype == "f32" else torch.int8
+    g = torch.Generator().manual_seed(17)
+    if case == "many":
+        shape = (grid + 7, 2 * tile + 2, 80)
+        if dtype == "int8":
+            return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
+        return (3000.0 * torch.randn(shape, generator=g)).to(dev)
     x, _ = _signal(1, (0, 13, 517), noise=1500.0)
+    if case == "one_channel":
+        x = x[1:2]
+    if case == "odd_n":
+        x = torch.cat([x, torch.zeros((x.shape[0], 1), dtype=x.dtype)], 1).to(dev)
+        assert x.shape[1] % 2 == 1 and x.is_contiguous()
+        return x
+    rows = to_window_rows(x.to(dev), rows_dt)
+    if case == "sliced":
+        # one float32 element, or four int8 ones (the kernel takes int8
+        # channels on a 4-byte boundary)
+        c, m, _ = rows.shape
+        off = 1 if dtype == "f32" else 4
+        buf = torch.zeros((c, m * 80 + off), dtype=rows_dt, device=dev)
+        buf[:, off:] = rows.reshape(c, -1)
+        rows = buf[:, off:].unflatten(1, (m, 80))
+    return rows
+
+
+@pytest.mark.parametrize("dtype,case", [
+    ("f32", "signal"), ("int8", "signal"), ("f32", "one_channel"),
+    ("int8", "one_channel"), ("f32", "many"), ("int8", "many"),
+    ("f32", "odd_n"), ("f32", "sliced"), ("int8", "sliced")])
+def test_soft_kernel_matches_twin(cuda_dev, dtype, case):
+    cfg = ss.kernel_config(dtype == "int8")
+    tile = cfg["threads"] * cfg["rows_per_thread"]
+    samples = _soft_rows(case, dtype, cuda_dev, cfg["grid"], tile)
+    c = samples.shape[0]
     rng = np.random.default_rng(9)
-    c = x.shape[0]
     r = torch.from_numpy(rng.integers(0, 40, c)).to(cuda_dev)
     foff = torch.from_numpy(rng.uniform(-400, 400, c).astype(np.float32)).to(cuda_dev)
     frac = torch.from_numpy(rng.uniform(0, 1, c).astype(np.float32)).to(cuda_dev)
     scale = torch.from_numpy(rng.uniform(110, 160, c).astype(np.float32)).to(cuda_dev)
-    rows = to_window_rows(x.to(cuda_dev), torch.float32 if dtype == "f32" else torch.int8)
-    nsym = rows.shape[1] - 1
-    ops = soft_stage_operands(rows, r, foff, nsym,
+    m = samples.shape[1] if samples.dim() == 3 else samples.shape[1] // 40
+    nsym = m - 1
+    ops = soft_stage_operands(samples, r, foff, nsym,
                               scale if dtype == "int8" else None, frac)
-    n0 = ss.symbol_soft_cuda.launches
+    if case in ("odd_n", "sliced"):   # the kernel reads the misaligned view
+        assert ops[0].data_ptr() % 16 or ops[0].stride(0) * ops[0].element_size() % 16
+    n0 = dict(ss.symbol_soft_cuda.launches)
     got = ss.symbol_soft_cuda(*ops, nsym)
     raw = ss.symbol_soft_cuda(*ops, nsym, raw=True)
     torch.cuda.synchronize()
-    assert ss.symbol_soft_cuda.launches == n0 + 2
+    rows_type = "float32" if dtype == "f32" else "int8"
+    assert ss.symbol_soft_cuda.launches == {**n0, rows_type: n0[rows_type] + 2}
     _close(got, ss.symbol_soft_reference(*ops, nsym))
     want_raw = ss.symbol_soft_reference(*ops, nsym, raw=True)
     if dtype == "int8":
@@ -109,8 +153,12 @@ def test_soft_kernel_matches_twin(cuda_dev, dtype):
         assert torch.equal(raw, want_raw)
     else:
         _close(raw, want_raw)
-    # a shorter nsym reads only its rows; nsym a multiple of the tile too
-    for k in (nsym - 1, 128, 1):
+    # shorter nsym: one symbol, a tile less one, one tile, one more, a
+    # multiple of the tile (the tile's closing row comes from the ring or
+    # from the block's own extra row)
+    for k in sorted({1, tile - 1, tile, tile + 1, 2 * tile, nsym - 1}):
+        if not 0 < k < nsym:
+            continue
         _close(ss.symbol_soft_cuda(*ops, k), ss.symbol_soft_reference(*ops, k))
         raw_k = ss.symbol_soft_cuda(*ops, k, raw=True)
         raw_t = ss.symbol_soft_reference(*ops, k, raw=True)
@@ -120,10 +168,14 @@ def test_soft_kernel_matches_twin(cuda_dev, dtype):
             _close(raw_k, raw_t)
 
 
-def test_slice_on_card_matches_cpu_twins(cuda_dev):
+@pytest.mark.parametrize("odd_n", [False, True])
+def test_slice_on_card_matches_cpu_twins(cuda_dev, odd_n):
     """rx_locked and rx_locked_steady through the kernels decode what the
-    CPU twins decode, and every kernel of the path launched."""
+    CPU twins decode, and every kernel of the path launched.  With N odd,
+    the soft kernel reads channels whose base is not 16-byte aligned."""
     x, frames = _signal(3, (0, 13, 37), noise=2000.0, seed=1)
+    if odd_n:
+        x = torch.cat([x, torch.zeros((x.shape[0], 1), dtype=x.dtype)], 1)
     cpu = rx_locked(x, n_frames=3)
     registry.reset_launch_counts()
     gpu = rx_locked(x.to(cuda_dev), n_frames=3)

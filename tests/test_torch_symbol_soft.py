@@ -78,6 +78,44 @@ def test_float_forms_match_jax(signal, monkeypatch, form, use_frac):
     _close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("use_frac", [False, True])
+def test_bf16_rows_match_jax(signal, monkeypatch, use_frac):
+    """bf16 window rows: the JAX package narrows the kernel columns to
+    bf16 and sums the (exact) products in float32; the port must too."""
+    monkeypatch.delenv("OPV_CORR", raising=False)
+    r, foff, frac, _ = _params(8)
+    rows = torch.from_numpy(np.stack([signal.real, signal.imag], -1)
+                            .reshape(C, -1, 80)).to(torch.bfloat16)
+    nsym = rows.shape[1] - 1
+    fr = frac if use_frac else None
+    want = soft_j(jnp.asarray(rows.to(torch.float32).numpy()).astype(jnp.bfloat16),
+                  jnp.asarray(r), jnp.asarray(foff), nsym,
+                  frac=None if fr is None else jnp.asarray(fr))
+    got = _symbol_soft_batch(rows, torch.from_numpy(r), torch.from_numpy(foff),
+                             nsym, frac=None if fr is None else torch.from_numpy(fr))
+    _close(got.numpy(), want)
+
+
+def test_odd_n_complex_matches_jax(signal, monkeypatch):
+    """(C, N) complex64 with N odd: the window-row view of channel c starts
+    at byte 8*N*c, so the channels are not all 16-byte aligned; the twin
+    still agrees with the JAX package."""
+    monkeypatch.setenv("OPV_CORR", "pallas_interpret")
+    r, foff, frac, _ = _params(9)
+    x = np.ascontiguousarray(np.concatenate(
+        [signal, signal[:, :1]], axis=1))                  # N = 2085*40 + 1
+    assert x.shape[1] % 2 == 1
+    nsym = x.shape[1] // 40 - 1
+    want = soft_j(jnp.asarray(x), jnp.asarray(r), jnp.asarray(foff), nsym,
+                  frac=jnp.asarray(frac))
+    ops = soft_stage_operands(torch.from_numpy(x), torch.from_numpy(r),
+                              torch.from_numpy(foff), nsym,
+                              frac=torch.from_numpy(frac))
+    assert ops[0].stride(0) == 2 * x.shape[1]               # a view, not a copy
+    got = ss.symbol_soft_reference(*ops, nsym)
+    _close(got.numpy(), want)
+
+
 @pytest.mark.parametrize("per_channel_scale", [False, True])
 def test_int8_rows_match_jax(signal, per_channel_scale):
     r, foff, frac, scale = _params(6)
