@@ -7,7 +7,8 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
   1. device   the card's name and power limit; TF32 matmuls must be off
   2. build    nvcc builds csrc/*.cu for sm_90a from this checkout
   3. viterbi  the CUDA Viterbi (radix 4 and 2) bit-identical to its plain
-              twin at B = 1, 131, 1280 on random, clean and tie-stress input
+              twin at B = 1, 131, 1280 on clean, tie-stress, wide (values
+              up to 2^15 - 1) and random input; time, bound, roofline
   4. soft     the fused soft-stage kernel against its twin at the main
               path's shapes: float32 within tolerance, the int8 dot exact;
               its launch configuration, time, bound (bytes moved over the
@@ -123,10 +124,25 @@ def phase_device():
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda} | "
         f"count {torch.cuda.device_count()}")
-    # the Viterbi's issue bound: int32 lanes (64 per SM) at the max SM clock
+    return card, int32_ops_per_s()
+
+
+def int32_ops_per_s() -> float:
+    """The card's int32 issue rate: 64 lanes per SM at the max SM clock."""
+    import torch
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return card, sms * 64 * sm_mhz * 1e6
+    return sms * 64 * sm_mhz * 1e6
+
+
+def viterbi_bound(b: int, int_ops_per_s: float):
+    """(bound ms, what bounds it) of B frames: each soft value read once
+    (int32), each bit and metric written once, against the int32 issue of
+    every state's add-compare-select at every trellis step."""
+    eb, fb = 2144, 1072
+    nbytes = b * (eb * 4 + fb + 4)
+    nops = b * fb * (64 * VITERBI_OPS_PER_STATE_STEP + VITERBI_OPS_PER_STEP)
+    return bound(nbytes, nops, int_ops_per_s)
 
 
 def phase_build():
@@ -141,9 +157,23 @@ def phase_build():
             log(f"[build]   {line.strip()}")
 
 
+def wide_rows(rng) -> np.ndarray:
+    """Rows beyond the main path's 0..7 that the Viterbi's contract covers
+    (any value below 2^15): uniform in 0..2^15-1, whose best metrics lie
+    below -2^25, so a metric * 64 + state key wraps int32."""
+    return rng.integers(0, 2**15, (5, 2144))
+
+
+def straddle_rows() -> np.ndarray:
+    """Two seeded rows whose 64 final metrics straddle -2^25: a metric * 64
+    + state key there picks the wrong end state, not only a wrong metric."""
+    return np.random.default_rng(5).integers(0, 31600, (40, 2144))[[3, 24]]
+
+
 def viterbi_inputs(b: int, dev, rng):
-    """Random 0..7 rows, then the clean encodes (metric 0) and the
-    tie-stress rows of the JAX package's Pallas tests."""
+    """The clean encodes (metric 0), the tie-stress rows of the JAX
+    package's Pallas tests, the wide and straddle rows, then random 0..7
+    rows: the first b of them, and the clean frames' bits."""
     import torch
     from opv_tpu_torch.core.convcode import conv_encode_bits
     eb, fb = 2144, 1072
@@ -152,9 +182,9 @@ def viterbi_inputs(b: int, dev, rng):
     tie = np.concatenate([rng.integers(0, 2, (4, eb)), np.zeros((2, eb)),
                           np.full((2, eb), 7), rng.integers(3, 5, (2, eb))])
     rand = rng.integers(0, 8, (b, eb))
-    soft = torch.cat([clean, torch.from_numpy(np.concatenate([tie, rand])
-                                             .astype(np.int32)).to(dev)])
-    return soft[:b].contiguous() if b < soft.shape[0] else soft, u
+    rows = np.concatenate([tie, wide_rows(rng), straddle_rows(), rand])
+    soft = torch.cat([clean, torch.from_numpy(rows.astype(np.int32)).to(dev)])
+    return soft[:b].contiguous(), u
 
 
 def phase_viterbi(dev, int_ops_per_s: float):
@@ -183,20 +213,17 @@ def phase_viterbi(dev, int_ops_per_s: float):
                     and int(met_k[:n_clean].abs().sum()) == 0):
                 raise AssertionError(f"viterbi radix {radix}: clean encode "
                                      "not decoded with metric 0")
-        soft = soft[:1280].contiguous()
         ms = cuda_ms(lambda: kern(soft), KERNEL_REPS)
         plain = cuda_ms(lambda: vit.viterbi_reference(soft, radix), 2)
         b = soft.shape[0]
-        nbytes = b * (soft.shape[1] * 4 + soft.shape[1] // 2 + 4)
-        nops = b * (soft.shape[1] // 2) * (64 * VITERBI_OPS_PER_STATE_STEP
-                                           + VITERBI_OPS_PER_STEP)
-        bound_ms, bound_by = bound(nbytes, nops, int_ops_per_s)
+        bound_ms, bound_by = viterbi_bound(b, int_ops_per_s)
         stats[radix] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
                             bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=None)
+                            roofline=bound_ms / ms, library_ms=None)
         log(f"[viterbi] radix {radix}: bit-identical to the twin at B=1,131,"
-            f"{b} (random, clean, tie stress); B={b}: kernel {ms:.4f} ms, "
-            f"twin {plain:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{b} (clean, tie stress, wide, random); B={b}: kernel {ms:.4f} ms,"
+            f" twin {plain:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"roofline {100 * bound_ms / ms:.1f}%")
     return stats
 
 

@@ -60,10 +60,10 @@ def variant_source(src: str, f32, i8) -> str:
     return src
 
 
-def with_soft_source(path: pathlib.Path) -> list[pathlib.Path]:
-    """The checkout's kernel sources with symbol_soft.cu swapped for `path`."""
-    return [p for p in sorted(build.CSRC.glob("*.cu"))
-            if p.name != "symbol_soft.cu"] + [path]
+def with_source(path: pathlib.Path, name: str) -> list[pathlib.Path]:
+    """The checkout's kernel sources with csrc/`name` swapped for `path`
+    (an older or changed copy of that source)."""
+    return [p for p in sorted(build.CSRC.glob("*.cu")) if p.name != name] + [path]
 
 
 def load_baseline(so: pathlib.Path) -> ctypes.CDLL:
@@ -121,34 +121,30 @@ def check(lib, ops, nsym: int, want, want_raw) -> float:
     return err
 
 
-def ptxas_summary(log: str) -> dict:
-    """The register/spill lines of each symbol_soft instantiation."""
+def ptxas_summary(log: str, label_of) -> dict:
+    """The register/spill lines of each kernel instantiation that
+    label_of(mangled name) names (None: not reported)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
-            cur = (("int8" if "I8Rows" in name else "f32")
-                   if "symbol_soft" in name else None)
+            cur = label_of(m.group(1))
         elif cur and ("registers" in line or "spill" in line):
             out.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
     return out
 
 
-def build_all(baseline: pathlib.Path | None):
-    """Build the checkout's library, every variant and the baseline at once:
-    ({name: library}, {name: ptxas summary})."""
-    src = (build.CSRC / "symbol_soft.cu").read_text()
-    work = build.BUILD_DIR.parent / "soft_sweep"
-    jobs = {}
-    for f32, i8 in VARIANTS:
-        name = f"f32 {f32} / int8 {i8}"
-        path = work / f"{len(jobs)}" / "symbol_soft.cu"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(variant_source(src, f32, i8))
-        jobs[name] = with_soft_source(path)
-    if baseline:
-        jobs["baseline"] = with_soft_source(baseline)
+def soft_label(name: str):
+    if "symbol_soft" in name:
+        return "int8" if "I8Rows" in name else "f32"
+    return None
+
+
+def build_all(jobs: dict, load=None):
+    """Build the checkout's library and every job {name: sources} at once
+    (one nvcc per source): ({name: library}, {name: compiler log}), the
+    checkout's under "build".  load(name, so) loads a job's library
+    (default build.load)."""
     libs, logs = {}, {}
     with concurrent.futures.ThreadPoolExecutor(len(jobs) + 1) as pool:
         main = pool.submit(build.library)
@@ -157,12 +153,28 @@ def build_all(baseline: pathlib.Path | None):
             so = build.library_path(srcs)
             futs[name] = (so, pool.submit(build.compile_shared, srcs, so))
         libs["build"] = main.result()
-        logs["build"] = ptxas_summary(build.BUILD_INFO["ptxas"])
+        logs["build"] = build.BUILD_INFO["ptxas"]
         for name, (so, fut) in futs.items():
             fut.result()
-            libs[name] = (load_baseline if name == "baseline" else build.load)(so)
-            logs[name] = ptxas_summary(so.with_suffix(".log").read_text())
+            libs[name] = load(name, so) if load else build.load(so)
+            logs[name] = so.with_suffix(".log").read_text()
     return libs, logs
+
+
+def soft_jobs(baseline: pathlib.Path | None) -> dict:
+    """Every Config<> variant, written under build/soft_sweep/, and the
+    baseline: {name: sources}."""
+    src = (build.CSRC / "symbol_soft.cu").read_text()
+    work = build.BUILD_DIR.parent / "soft_sweep"
+    jobs = {}
+    for f32, i8 in VARIANTS:
+        path = work / f"{len(jobs)}" / "symbol_soft.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(variant_source(src, f32, i8))
+        jobs[f"f32 {f32} / int8 {i8}"] = with_source(path, "symbol_soft.cu")
+    if baseline:
+        jobs["baseline"] = with_source(baseline, "symbol_soft.cu")
+    return jobs
 
 
 def main(argv=None) -> int:
@@ -177,7 +189,10 @@ def main(argv=None) -> int:
         raise SystemExit("soft_sweep: no CUDA device")
     card = nvidia_smi("name,power.limit")
     dev = torch.device("cuda", 0)
-    libs, logs = build_all(args.baseline)
+    libs, logs = build_all(soft_jobs(args.baseline),
+                           lambda name, so: (load_baseline(so) if name == "baseline"
+                                             else build.load(so)))
+    logs = {name: ptxas_summary(log, soft_label) for name, log in logs.items()}
     print(f"[sweep] {card}; built {len(libs)} libraries", flush=True)
 
     report = {"card": card, "reps": KERNEL_REPS, "rows": {}}

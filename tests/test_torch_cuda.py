@@ -6,19 +6,24 @@ alone, without the suite's conftest:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from opv_tpu_torch.config import CONFIG
-from opv_tpu_torch.core.convcode import conv_encode_bits
-from opv_tpu_torch.core.framing import build_bert_frame, encode_frame
-from opv_tpu_torch.ops import registry
-from opv_tpu_torch.ops import symbol_soft as ss
-from opv_tpu_torch.ops import viterbi as vit
-from opv_tpu_torch.rx.locked import (rx_locked, rx_locked_steady,
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+from chip_smoke import viterbi_inputs  # noqa: E402
+from opv_tpu_torch.config import CONFIG  # noqa: E402
+from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
+from opv_tpu_torch.ops import registry  # noqa: E402
+from opv_tpu_torch.ops import symbol_soft as ss  # noqa: E402
+from opv_tpu_torch.ops import viterbi as vit  # noqa: E402
+from opv_tpu_torch.rx.locked import (rx_locked, rx_locked_steady,  # noqa: E402
                                      soft_stage_operands, to_window_rows)
-from opv_tpu_torch.tx.modulator import (iq_int16_to_complex, modulate_frames,
+from opv_tpu_torch.tx.modulator import (iq_int16_to_complex, modulate_frames,  # noqa: E402
                                         tx_flush_zeros)
 
 EB = CONFIG.encoded_bits
@@ -56,25 +61,38 @@ def _close(got, want):
     assert err <= RTOL * float(want.abs().max()), err
 
 
-@pytest.mark.parametrize("radix", [2, 4])
-@pytest.mark.parametrize("b", [1, 131, 1280])
-def test_viterbi_kernel_matches_twin(cuda_dev, radix, b):
-    rng = np.random.default_rng(b)
-    u = torch.from_numpy(rng.integers(0, 2, (3, CONFIG.frame_bits)).astype(np.uint8))
-    clean = torch.where(conv_encode_bits(u) == 1, 7, 0).to(torch.int32)
-    tie = np.concatenate([rng.integers(0, 2, (4, EB)), np.zeros((2, EB)),
-                          np.full((2, EB), 7), rng.integers(3, 5, (2, EB))])
-    soft = torch.cat([clean, torch.from_numpy(np.concatenate(
-        [tie, rng.integers(0, 8, (b, EB))]).astype(np.int32))])[:b]
-    soft = soft.contiguous().to(cuda_dev)
+def _viterbi_check(soft, radix):
+    """The kernel of `radix` on `soft`, launched once, against its twin."""
     n0 = vit.CUDA_KERNELS[radix].launches
     bits, metrics = vit.CUDA_KERNELS[radix](soft)
     torch.cuda.synchronize()
     assert vit.CUDA_KERNELS[radix].launches == n0 + 1
     b_t, m_t = vit.viterbi_reference(soft, radix)
     assert torch.equal(bits, b_t) and torch.equal(metrics, m_t)
+    return bits, metrics
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("b", [1, 131, 1280])
+def test_viterbi_kernel_matches_twin(cuda_dev, radix, b):
+    """Clean encodes (metric 0), tie stress, wide values (best metrics
+    beyond -2^25, final metrics straddling it) and random rows."""
+    soft, u = viterbi_inputs(b, cuda_dev, np.random.default_rng(b))
+    bits, metrics = _viterbi_check(soft, radix)
     k = min(3, b)
-    assert torch.equal(bits[:k].cpu(), u[:k]) and int(metrics[:k].abs().sum()) == 0
+    assert torch.equal(bits[:k], u[:k]) and int(metrics[:k].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+def test_viterbi_kernel_takes_misaligned_view(cuda_dev, radix):
+    """A contiguous soft view whose base sits 4 bytes past a 16-byte
+    boundary: the kernel stages it with 4-byte loads."""
+    rows, _ = viterbi_inputs(131, cuda_dev, np.random.default_rng(3))
+    buf = torch.zeros(rows.numel() + 1, dtype=torch.int32, device=cuda_dev)
+    soft = buf[1:].view(rows.shape)
+    soft.copy_(rows)
+    assert soft.is_contiguous() and soft.data_ptr() % 16 == 4
+    _viterbi_check(soft, radix)
 
 
 def test_viterbi_kernel_rejects_bad_input(cuda_dev):

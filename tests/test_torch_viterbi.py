@@ -2,18 +2,24 @@
 (viterbi_decode_batch) and its Pallas kernel in interpret mode.  The CUDA
 kernel is held against these twins on the card (test_torch_cuda.py)."""
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
-from opv_tpu.config import CONFIG
-from opv_tpu.core.convcode import conv_encode_bits_np
-from opv_tpu.ops.pallas.viterbi import viterbi_pallas
-from opv_tpu.rx.viterbi import viterbi_decode_batch as oracle_j
-from opv_tpu_torch.ops import registry
-from opv_tpu_torch.ops import viterbi as vit
-from opv_tpu_torch.rx.viterbi import (_tables, viterbi_decode_batch,
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+from chip_smoke import straddle_rows, wide_rows  # noqa: E402
+from opv_tpu.config import CONFIG  # noqa: E402
+from opv_tpu.core.convcode import conv_encode_bits_np  # noqa: E402
+from opv_tpu.ops.pallas.viterbi import viterbi_pallas  # noqa: E402
+from opv_tpu.rx.viterbi import viterbi_decode_batch as oracle_j  # noqa: E402
+from opv_tpu_torch.ops import registry  # noqa: E402
+from opv_tpu_torch.ops import viterbi as vit  # noqa: E402
+from opv_tpu_torch.rx.viterbi import (_tables, viterbi_decode_batch,  # noqa: E402
                                       viterbi_decode_r4_batch)
 
 EB = CONFIG.encoded_bits
@@ -30,13 +36,20 @@ def _matrix(kind: str, rng) -> np.ndarray:
     if kind == "tie_stress":
         return np.concatenate([rng.integers(0, 2, (4, EB)), np.zeros((2, EB)),
                                np.full((2, EB), 7), rng.integers(3, 5, (2, EB))])
+    if kind == "wide":
+        return wide_rows(rng)
+    if kind == "straddle":
+        return straddle_rows()
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("kind", ["random1", "random131", "clean", "tie_stress"])
+@pytest.mark.parametrize("kind", ["random1", "random131", "clean", "tie_stress",
+                                  "wide", "straddle"])
 def test_twins_match_oracle_and_pallas(kind):
     """Both twins give the JAX oracle's bits and metrics; the Pallas
-    kernel (interpret mode) of the same radix agrees too."""
+    kernel (interpret mode) of the same radix agrees too.  The wide and
+    straddle rows cover the contract's values up to 2^15 - 1, where best
+    metrics pass -2^25."""
     soft = _matrix(kind, np.random.default_rng(8)).astype(np.int32)
     b_o, m_o = (np.asarray(a) for a in oracle_j(jnp.asarray(soft)))
     for radix, twin in ((2, viterbi_decode_batch), (4, viterbi_decode_r4_batch)):
@@ -49,6 +62,34 @@ def test_twins_match_oracle_and_pallas(kind):
             b_p, m_p = viterbi_pallas(jnp.asarray(soft), interpret=True, radix=radix)
             np.testing.assert_array_equal(np.asarray(b_p).astype(np.uint8), b_o)
             np.testing.assert_array_equal(np.asarray(m_p), m_o)
+
+
+def _final_metrics(soft: np.ndarray) -> np.ndarray:
+    """All 64 path metrics after the last trellis step (int64, no guard:
+    state 0 starts at 0, the others far above any reachable metric)."""
+    p0, p1, e1_0, e2_0, e1_1, e2_1 = _tables()
+    sg = soft.astype(np.int64).reshape(len(soft), -1, 2)
+    m = np.full((len(soft), 64), 2**40, np.int64)
+    m[:, 0] = 0
+    for t in range(sg.shape[1]):
+        s1, s2 = sg[:, t, 0:1], sg[:, t, 1:2]
+        bm0 = np.where(e1_0 == 1, 7 - s1, s1) + np.where(e2_0 == 1, 7 - s2, s2)
+        bm1 = np.where(e1_1 == 1, 7 - s1, s1) + np.where(e2_1 == 1, 7 - s2, s2)
+        m = np.minimum(m[:, p0] + bm0, m[:, p1] + bm1)
+    return m
+
+
+def test_wide_rows_pass_the_composite_key_range():
+    """The rows that hold the kernel's end state to the contract do what
+    they claim: the wide rows' best metrics lie below -2^25 (metric * 64
+    wraps int32) and each straddle row's final metrics straddle -2^25."""
+    lim = -2**25
+    best = _final_metrics(wide_rows(np.random.default_rng(8))).min(1)
+    assert (best < lim).all()
+    fin = _final_metrics(straddle_rows())
+    assert ((fin.min(1) < lim) & (fin.max(1) >= lim)).all()
+    _, m_t = viterbi_decode_batch(torch.from_numpy(straddle_rows().astype(np.int32)))
+    np.testing.assert_array_equal(m_t.numpy(), fin.min(1))
 
 
 def test_clean_decode_metric_zero():
