@@ -27,7 +27,25 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
   6. profile  torch.profiler over three steady blocks per buffer type:
               device time by op and the device-busy share of the block
               (Chrome traces go to build/chip_smoke/)
-  7. the kernels JSON line, the card line, then the result line
+  7. stream   the port's streaming engine (LockedStreamDemodulator,
+              synchronous, block_frames 4) on the card at 64 channels:
+              channels 0-55 the main path's stream, 56-63 a 6-frame burst,
+              an 8-frame noise gap and a 6-frame burst at +500 Hz, +23
+              samples; fed one window, then advance-sized chunks, then
+              flushed, with float32 and then int8 rows: every transmitted
+              frame emitted once, byte-exact, metric 0, at its position;
+              >= 2 re-acquisitions; the soft-stage (both row types) and
+              radix-4 Viterbi counters grow over the two runs; the first
+              soft-stage and Viterbi call of each program (steady,
+              reacquire) held against the twins on the operands the engine
+              gave it (64 x 10,866 rows, 256 frames).  Then the
+              host-clock throughput over 12 blocks of bench.py's cyclic
+              feed, and on a 4-channel impaired feed the engine on the card
+              against the engine on the CPU (identical tuples, sync
+              quality within 1e-4), and rx_locked_reacquire / _retime on
+              its first window, card against CPU
+  8. the kernels JSON line (launches: the main path's; launches_stream:
+     the stream phase's two runs), the card line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 There is no CPU fallback: without a CUDA device it exits non-zero and
@@ -63,6 +81,25 @@ VITERBI_OPS_PER_STATE_STEP = 4
 VITERBI_OPS_PER_STEP = 4
 STEADY_REPS = 7
 THROUGHPUT_BLOCKS = 20
+SPF = 86_720                  # samples per frame
+#: the stream phase: the engine at the main path's width, block_frames 4;
+#: channels 0..55 carry the main path's stream, the rest a burst of 6
+#: frames, an 8-frame noise gap (lock lost) and 6 frames at +500 Hz and
+#: +23 samples (a mixed-lock re-acquire)
+STREAM_BF = 4
+STREAM_CLEAN = 56
+STREAM_BURST_FRAMES = 6
+STREAM_GAP_FRAMES = 8
+STREAM_BURST_CFO_HZ = 500.0
+STREAM_BURST_SHIFT = 23
+#: numpy seeds of the gap noise of channels 56..63 (see gap_burst)
+STREAM_GAP_SEEDS = (1, 3, 4, 5, 6, 7, 8, 10)
+#: card against CPU twins: sync quality within this (float32 sums in
+#: another order); chunk size of those feeds (exercises the sub-row pend)
+STREAM_Q_TOL = 1e-4
+STREAM_TWIN_CHUNK = 70_001
+STREAM_WARM_BLOCKS = 5
+STREAM_TIMED_BLOCKS = 12
 
 
 def log(msg: str) -> None:
@@ -187,6 +224,25 @@ def viterbi_inputs(b: int, dev, rng):
     return soft[:b].contiguous(), u
 
 
+def hold_viterbi(soft, radix: int, what: str):
+    """The Viterbi kernel of `radix` against its twin on `soft` (B, 2144),
+    bit for bit.  Returns (bits, metrics, error): the error is the larger
+    of the most differing bits in a frame and the largest metric
+    difference, which is 0 whenever this returns."""
+    import torch
+    from opv_tpu_torch.ops import viterbi as vit
+    bits_k, met_k = vit.CUDA_KERNELS[radix](soft)
+    bits_t, met_t = vit.viterbi_reference(soft, radix)
+    if not (torch.equal(bits_k, bits_t) and torch.equal(met_k, met_t)):
+        bad = (bits_k != bits_t).any(1) | (met_k != met_t)
+        raise AssertionError(
+            f"{what}: viterbi radix {radix} B={soft.shape[0]}: kernel != twin "
+            f"on rows {torch.nonzero(bad)[:8, 0].tolist()}")
+    err = max(int((bits_k != bits_t).sum(1).max()),
+              int((met_k - met_t).abs().max()))
+    return bits_k, met_k, err
+
+
 def phase_viterbi(dev, int_ops_per_s: float):
     import torch
     from opv_tpu_torch.ops import viterbi as vit
@@ -199,15 +255,8 @@ def phase_viterbi(dev, int_ops_per_s: float):
         err = 0
         for b in (1, 131, 1280):
             soft, u = viterbi_inputs(b, dev, rng)
-            bits_k, met_k = kern(soft)
-            bits_t, met_t = vit.viterbi_reference(soft, radix)
-            err = max(err, int((bits_k != bits_t).sum(1).max()),
-                      int((met_k - met_t).abs().max()))
-            if not (torch.equal(bits_k, bits_t) and torch.equal(met_k, met_t)):
-                bad = (bits_k != bits_t).any(1) | (met_k != met_t)
-                raise AssertionError(
-                    f"viterbi radix {radix} B={soft.shape[0]}: kernel != twin "
-                    f"on rows {torch.nonzero(bad)[:8, 0].tolist()}")
+            bits_k, met_k, e = hold_viterbi(soft, radix, "viterbi")
+            err = max(err, e)
             n_clean = min(3, soft.shape[0])
             if not (torch.equal(bits_k[:n_clean], u[:n_clean])
                     and int(met_k[:n_clean].abs().sum()) == 0):
@@ -227,23 +276,62 @@ def phase_viterbi(dev, int_ops_per_s: float):
     return stats
 
 
-def synthesize(dev):
-    """(C, N) complex64 on the card: the 20-frame BERT stream through the
-    port's TX, channel c delayed by (c % 40) + 487 c samples."""
+def transmission(n_frames: int, dev, start: int = 0):
+    """A BERT transmission through the port's TX on `dev`: ((N,) complex64
+    with the modulator's trailing zero flush, (n_frames, 134) uint8
+    frames numbered start, start + 1, ...)."""
     import torch
     from opv_tpu_torch.core.framing import build_bert_frame, encode_frame
     from opv_tpu_torch.tx.modulator import (iq_int16_to_complex,
                                             modulate_frames, tx_flush_zeros)
-    frames = torch.from_numpy(build_bert_frame("W5NYV",
-                                               frame_num=np.arange(FRAMES)))
-    iq, _ = modulate_frames(encode_frame(frames.to(dev)))
-    s = iq_int16_to_complex(torch.cat([iq, tx_flush_zeros(device=dev)]))
+    frames = torch.from_numpy(build_bert_frame(
+        "W5NYV", frame_num=start + np.arange(n_frames))).to(dev)
+    iq, _ = modulate_frames(encode_frame(frames))
+    return (iq_int16_to_complex(torch.cat([iq, tx_flush_zeros(device=dev)])),
+            frames)
+
+
+def synthesize(dev):
+    """(C, N) complex64 on the card: the 20-frame BERT stream through the
+    port's TX, channel c delayed by (c % 40) + 487 c samples."""
+    import torch
+    s, frames = transmission(FRAMES, dev)
     delays = [(c % 40) + 487 * c for c in range(CHANNELS)]
     n = -(-(len(s) + max(delays)) // 40) * 40
     x = torch.zeros((CHANNELS, n), dtype=torch.complex64, device=dev)
     for c, d in enumerate(delays):
         x[c, d:d + len(s)] = s
-    return x, frames.to(dev), delays
+    return x, frames, delays
+
+
+def hold_soft(ops, nsym: int, what: str):
+    """The soft-stage kernel against its twin on `ops` (rows, kern, resc,
+    phi): the soft values within SOFT_RTOL of max|twin|, and the raw
+    correlation too (exact for int8 rows).  Returns (max |kernel - twin|,
+    max|twin|, a note on the correlation)."""
+    import torch
+    from opv_tpu_torch.ops import symbol_soft as ss
+    got = ss.symbol_soft_cuda(*ops, nsym)
+    want = ss.symbol_soft_reference(*ops, nsym)
+    raw_k = ss.symbol_soft_cuda(*ops, nsym, raw=True)
+    raw_t = ss.symbol_soft_reference(*ops, nsym, raw=True)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale_ref = float(want.abs().max())
+    if not err <= SOFT_RTOL * scale_ref:
+        raise AssertionError(f"{what}: max |kernel - twin| {err:.4g} "
+                             f"> {SOFT_RTOL} x {scale_ref:.4g}")
+    if ops[0].dtype == torch.int8:
+        if not torch.equal(raw_k, raw_t):
+            raise AssertionError(f"{what}: s32 dot differs from the twin's "
+                                 "int32 contraction")
+        return err, scale_ref, "s32 dot exact"
+    raw_err = float((raw_k - raw_t).abs().max())
+    raw_ref = float(raw_t.abs().max())
+    if not raw_err <= SOFT_RTOL * raw_ref:
+        raise AssertionError(f"{what} correlation: {raw_err:.4g} > "
+                             f"{SOFT_RTOL} x {raw_ref:.4g}")
+    return err, scale_ref, f"correlation max err {raw_err:.4g} of {raw_ref:.4g}"
 
 
 def phase_soft(x, dev):
@@ -261,28 +349,7 @@ def phase_soft(x, dev):
         rows_all = to_window_rows(x, dt)
         nsym = rows_all.shape[1] - 1
         ops = soft_stage_operands(rows_all, r, foff, nsym, sc, frac)
-        got = ss.symbol_soft_cuda(*ops, nsym)
-        want = ss.symbol_soft_reference(*ops, nsym)
-        raw_k = ss.symbol_soft_cuda(*ops, nsym, raw=True)
-        raw_t = ss.symbol_soft_reference(*ops, nsym, raw=True)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale_ref = float(want.abs().max())
-        if not err <= SOFT_RTOL * scale_ref:
-            raise AssertionError(f"soft {name}: max |kernel - twin| {err:.4g} "
-                                 f"> {SOFT_RTOL} x {scale_ref:.4g}")
-        if dt == torch.int8:
-            if not torch.equal(raw_k, raw_t):
-                raise AssertionError("soft int8: s32 dot differs from the "
-                                     "twin's int32 contraction")
-            raw_note = "s32 dot exact"
-        else:
-            raw_err = float((raw_k - raw_t).abs().max())
-            raw_ref = float(raw_t.abs().max())
-            if not raw_err <= SOFT_RTOL * raw_ref:
-                raise AssertionError(f"soft f32 correlation: {raw_err:.4g} > "
-                                     f"{SOFT_RTOL} x {raw_ref:.4g}")
-            raw_note = f"correlation max err {raw_err:.4g} of {raw_ref:.4g}"
+        err, scale_ref, raw_note = hold_soft(ops, nsym, f"soft {name}")
         rows, kern = ops[0][:, : nsym + 1], ops[1]
         nbytes = ss.moved_bytes(*ops, nsym)
         bound_ms, bound_by = bound(nbytes, 2 * rows.numel() * 8,
@@ -374,6 +441,370 @@ def phase_main(x, frames, delays, dev, card):
     return launches, steady, peak, (rows_f, rows_q, p0, foff, frac)
 
 
+def gap_burst(dev, seed: int = 1):
+    """One channel of the lock-loss pattern, (N,) complex64 on `dev`: a
+    6-frame burst, an 8-frame gap of AWGN (sigma 50 per component, numpy's
+    generator from `seed`), then a 6-frame burst 23 samples later at +500
+    Hz.  Also its frames with their sync positions: [(frame bytes,
+    position)].
+
+    Whether every frame of burst 2 is kept depends on the gap's noise, in
+    the JAX package's engine as in the port's: a noise slot whose sync
+    quality reaches 0.70 resets the flywheel's miss count, so the lock can
+    outlive the gap and burst 2's first frame is lost, as the reference's
+    tracker loses it (src/opv-demod.cpp:695-713).  The seeds used here keep
+    every frame on float32 and int8 rows (checked on the CPU twins); seed
+    2 loses two frames on float32 rows and seed 9 six on int8 rows, in
+    both packages (tests/test_torch_stream_gap.py, one channel)."""
+    import torch
+    s1, f1 = transmission(STREAM_BURST_FRAMES, dev)
+    s2, f2 = transmission(STREAM_BURST_FRAMES, dev, start=100)
+    rng = np.random.default_rng(seed)
+    m = STREAM_GAP_FRAMES * SPF
+    gap = torch.from_numpy((50.0 * (rng.standard_normal(m)
+                                    + 1j * rng.standard_normal(m))
+                            ).astype(np.complex64)).to(dev)
+    from opv_tpu_torch.config import CONFIG
+    t = torch.arange(len(s2), dtype=torch.float64, device=dev)
+    ph = 2 * np.pi * STREAM_BURST_CFO_HZ * t / CONFIG.sample_rate
+    s2 = s2 * torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+    lead = torch.zeros(STREAM_BURST_SHIFT, dtype=torch.complex64, device=dev)
+    b2 = len(s1) + m + STREAM_BURST_SHIFT
+    want = ([(f, k * SPF) for k, f in enumerate(f1)]
+            + [(f, b2 + k * SPF) for k, f in enumerate(f2)])
+    return torch.cat([s1, gap, lead, s2]), want
+
+
+def padded(x, n: int):
+    """x zero-padded (or cut) to n samples along its last axis."""
+    import torch.nn.functional as F
+    return F.pad(x, (0, n - x.shape[-1]))
+
+
+def stream_feed(x, frames, delays, dev):
+    """The stream phase's (C, N) feed: channels 0..STREAM_CLEAN-1 carry the
+    main path's stream at its delays, the rest the gap-burst pattern.
+    Returns the feed and, per channel, [(frame bytes, sync position)]."""
+    bursts = [gap_burst(dev, seed=STREAM_GAP_SEEDS[c - STREAM_CLEAN])
+              for c in range(STREAM_CLEAN, x.shape[0])]
+    n = max([x.shape[1]] + [len(b) for b, _ in bursts])
+    feed = padded(x, -(-n // 40) * 40)
+    want = [[(f, d + k * SPF) for k, f in enumerate(frames)] for d in delays]
+    for c, (b, w) in enumerate(bursts, start=STREAM_CLEAN):
+        feed[c], want[c] = padded(b, feed.shape[1]), w
+    return feed, want
+
+
+def spy_kernels(sd):
+    """Keep a copy of the operands of the first soft-stage and the first
+    Viterbi call of each program the engine `sd` runs (steady,
+    reacquire), as the registry hands them to the kernels, so they can be
+    held against the twins after the run without counting as its
+    launches.  Returns ({(program, "soft" | "viterbi"): args}, filled as
+    the engine runs; a function that removes the spies)."""
+    import torch
+    from opv_tpu_torch.ops import registry
+    held, prog = {}, []
+    for name in ("steady", "reacquire"):
+        def run(*a, _fn=getattr(sd, "_" + name), _name=name):
+            prog.append(_name)
+            out = _fn(*a)
+            prog.pop()
+            return out
+        setattr(sd, "_" + name, run)
+    entries = {"soft": registry.symbol_soft, "viterbi": registry.viterbi_batch}
+
+    def spy(kind):
+        def call(*a):
+            held.setdefault((prog[-1], kind), tuple(
+                v.clone() if isinstance(v, torch.Tensor) else v for v in a))
+            return entries[kind](*a)
+        return call
+
+    registry.symbol_soft, registry.viterbi_batch = spy("soft"), spy("viterbi")
+
+    def remove():
+        registry.symbol_soft = entries["soft"]
+        registry.viterbi_batch = entries["viterbi"]
+    return held, remove
+
+
+def drive_stream(feed, dev, dtype: str):
+    """The port's engine over `feed` as a stream: one window, then
+    advance-sized chunks, then flush() (each chunk completes one block).
+    Returns (tuples, engine, [(block tags, host ms)] per call, the
+    kernels' operands kept by spy_kernels)."""
+    import torch
+    from opv_tpu_torch.stream import LockedStreamDemodulator
+    sd = LockedStreamDemodulator(feed.shape[0], block_frames=STREAM_BF,
+                                 dtype=dtype, agc=False, device=dev,
+                                 timing=True)
+    held, remove_spies = spy_kernels(sd)
+    n = feed.shape[1]
+    calls = [lambda: sd.feed(feed[:, :sd.window])]
+    calls += [lambda p=p: sd.feed(feed[:, p:p + sd.advance])
+              for p in range(sd.window, n, sd.advance)]
+    calls.append(sd.flush)
+    out, per_call = [], []
+    for call in calls:
+        nb = len(sd.block_stats)
+        t0 = time.perf_counter()
+        out += call()
+        torch.cuda.synchronize(dev)
+        per_call.append(([b["tag"] for b in sd.block_stats[nb:]],
+                         (time.perf_counter() - t0) * 1e3))
+    remove_spies()
+    return out, sd, per_call, held
+
+
+def hold_stream_kernels(held, what: str) -> list:
+    """Each kept kernel call of one engine run against its twin: the
+    soft stage within SOFT_RTOL (its int8 dot exact), the Viterbi (the
+    registry's radix) bit for bit.  Both programs must have run both
+    kernels.  Returns one summary dict per call held."""
+    import torch
+    from opv_tpu_torch.ops import registry
+    need = {(p, k) for p in ("steady", "reacquire") for k in ("soft", "viterbi")}
+    if set(held) != need:
+        raise AssertionError(f"stream {what}: kernel calls kept "
+                             f"{sorted(held)}, need {sorted(need)}")
+    radix = registry.get_viterbi_radix()
+    stats = []
+    for (prog, kind), args in sorted(held.items()):
+        name = f"stream {what} {prog}"
+        if kind == "soft":
+            *ops, nsym = args
+            err, ref, _ = hold_soft(ops, nsym, f"{name} soft")
+            rows = "int8" if ops[0].dtype == torch.int8 else "float32"
+            stats.append(dict(run=what, program=prog,
+                              kernel=f"symbol_soft[{rows}]",
+                              shape=list(ops[0].shape), nsym=nsym,
+                              max_abs_err=err, max_rel_err=err / ref))
+        else:
+            _, _, err = hold_viterbi(args[0], radix, f"{name} viterbi")
+            stats.append(dict(run=what, program=prog,
+                              kernel=f"viterbi_r{radix}",
+                              shape=list(args[0].shape), max_abs_err=err))
+    return stats
+
+
+def check_stream(out, want, what: str) -> None:
+    """Every transmitted frame emitted exactly once, byte-equal, metric 0,
+    at its sync position (+-1 sample); any other tuple is a flywheel frame
+    over a gap (nonzero metric) on a gap-burst channel."""
+    for c, frames in enumerate(want):
+        mine = [r for r in out if r[0] == c]
+        expect = {bytes(f.cpu().numpy()): p for f, p in frames}
+        seen = [r for r in mine if r[1] in expect]
+        bad = [(r[2], r[4]) for r in seen
+               if r[2] != 0 or abs(r[4] - expect[r[1]]) > 1]
+        if len(seen) != len(expect) or len({r[1] for r in seen}) != len(expect) \
+                or bad:
+            raise AssertionError(
+                f"stream {what} channel {c}: {len(seen)} of {len(expect)} "
+                f"frames emitted ({len({r[1] for r in seen})} distinct); "
+                f"wrong metric or position: {bad[:4]}")
+        extra = [(r[2], r[4]) for r in mine if r[1] not in expect]
+        if extra and (c < STREAM_CLEAN or any(m == 0 for m, _ in extra)):
+            raise AssertionError(f"stream {what} channel {c}: frames not "
+                                 f"transmitted were emitted: {extra[:4]}")
+
+
+def same_stream(got, want, what: str) -> None:
+    """Tuple streams equal: channel, bytes, metric and position, and the
+    sync quality within STREAM_Q_TOL."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} tuples against {len(want)}")
+    for g, w in zip(got, want):
+        if (g[0], g[1], g[2], g[4]) != (w[0], w[1], w[2], w[4]) \
+                or abs(g[3] - w[3]) > STREAM_Q_TOL:
+            raise AssertionError(f"{what}: tuple {(g[0], g[2], g[3], g[4])} "
+                                 f"against {(w[0], w[2], w[3], w[4])}")
+
+
+def impaired_feed(x, dev, seed: int = STREAM_GAP_SEEDS[0]):
+    """(4, N) complex64 on `dev` from the main path's stream: channel 0
+    clean, channels 1 and 2 in AWGN (sigma 2000 per component), channel 3
+    the gap-burst pattern.  Returns the feed and the grids of 0-2."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = 2000.0 * torch.complex(
+        torch.randn((2, x.shape[1]), generator=g, device=dev),
+        torch.randn((2, x.shape[1]), generator=g, device=dev))
+    burst, _ = gap_burst(dev, seed=seed)
+    feed = torch.stack([x[0], x[1] + noise[0], x[2] + noise[1],
+                        padded(burst, x.shape[1])])
+    return feed, [(c % 40) + 487 * c for c in range(3)]
+
+
+def stream_twin_checks(feed, grid, dev):
+    """The engine on the card against the engine on the CPU (the twins) on
+    `feed`, float32 and int8 rows; then rx_locked_reacquire (mixed keep)
+    and rx_locked_retime on the feed's first window, card against CPU.
+    Returns a summary dict."""
+    import torch
+    from opv_tpu_torch.rx.locked import rx_locked_reacquire, rx_locked_retime
+    from opv_tpu_torch.stream import LockedStreamDemodulator
+    cpu = torch.device("cpu")
+    tuples = {}
+    for dtype in ("float32", "int8"):
+        runs = []
+        for d in (dev, cpu):
+            sd = LockedStreamDemodulator(feed.shape[0], block_frames=STREAM_BF,
+                                         dtype=dtype, agc=False, device=d)
+            src = feed.to(d)
+            out = []
+            for off in range(0, src.shape[1], STREAM_TWIN_CHUNK):
+                out += sd.feed(src[:, off:off + STREAM_TWIN_CHUNK])
+            runs.append((out + sd.flush(), sd.reacquisitions))
+        same_stream(runs[0][0], runs[1][0], f"stream engine {dtype} card vs cpu")
+        if runs[0][1] != runs[1][1]:
+            raise AssertionError(f"{dtype}: reacquisitions {runs[0][1]} on the "
+                                 f"card, {runs[1][1]} on the cpu")
+        tuples[dtype] = len(runs[0][0])
+    window = (STREAM_BF + 1) * SPF + 1040
+    win = feed[:, :window]
+    keep = torch.tensor([True, False, True, False])
+    p0 = torch.tensor([grid[0], 0, grid[2], 0], dtype=torch.int32)
+    foff = torch.zeros(4)
+    frac = torch.tensor([0.5, 0.0, 0.25, 0.0])
+    r_dev = rx_locked_reacquire(win, p0.to(dev), foff.to(dev), keep.to(dev),
+                                STREAM_BF, frac_old=frac.to(dev))
+    r_cpu = rx_locked_reacquire(win.to(cpu), p0, foff, keep, STREAM_BF,
+                                frac_old=frac)
+    p0_t = torch.tensor(grid + [0], dtype=torch.int32)
+    t_dev = rx_locked_retime(win, p0_t.to(dev), foff.to(dev), STREAM_BF)
+    t_cpu = rx_locked_retime(win.to(cpu), p0_t, foff, STREAM_BF)
+    for k in ("p0", "frames", "metrics", "burst_only", "frame_valid"):
+        if not torch.equal(r_dev[k].cpu(), r_cpu[k]):
+            raise AssertionError(f"rx_locked_reacquire {k}: card "
+                                 f"{r_dev[k].cpu().tolist()[:4]} cpu "
+                                 f"{r_cpu[k].tolist()[:4]}")
+    errs = dict(
+        reacquire_freq_offset=float((r_dev["freq_offset"].cpu()
+                                     - r_cpu["freq_offset"]).abs().max()),
+        reacquire_frac=float((r_dev["frac"].cpu() - r_cpu["frac"]).abs().max()),
+        retime_frac=float((t_dev[1].cpu() - t_cpu[1]).abs().max()))
+    if not torch.equal(t_dev[0].cpu(), t_cpu[0]):
+        raise AssertionError(f"rx_locked_retime delta: card "
+                             f"{t_dev[0].cpu().tolist()} cpu {t_cpu[0].tolist()}")
+    if errs["reacquire_freq_offset"] > 1.0 or max(
+            errs["reacquire_frac"], errs["retime_frac"]) > 1e-3:
+        raise AssertionError(f"card vs cpu beyond 1 Hz / 1e-3 samples: {errs}")
+    return dict(tuples=tuples, reacquire_p0=r_dev["p0"].cpu().tolist(),
+                burst_only=r_dev["burst_only"].cpu().tolist(),
+                retime_delta=t_dev[0].cpu().tolist(), **errs)
+
+
+def stream_throughput(x, dev, dtype: str):
+    """bench.py's streaming pattern: the clean stream (its zero tail
+    dropped) as a cyclic feed; one window, STREAM_WARM_BLOCKS advance-sized
+    blocks to warm up, then STREAM_TIMED_BLOCKS timed on the host clock,
+    lifecycle and result fetch included.  Returns (Msamples/s, ms per
+    block, the timed blocks' engine records: tag, device_wait_ms (one
+    synchronize and the result copies) and host_ms (the lifecycle))."""
+    import torch
+    from opv_tpu_torch.stream import LockedStreamDemodulator
+    sd = LockedStreamDemodulator(x.shape[0], block_frames=STREAM_BF,
+                                 dtype=dtype, agc=False, device=dev,
+                                 timing=True)
+    n = FRAMES * SPF
+    adv, win = sd.advance, sd.window
+    if n % adv or n <= win:
+        raise ValueError("geometry not cyclic-compatible")
+    x2 = torch.cat([x[:, :n], x[:, :win]], dim=1)
+    sd.feed(x2[:, :win])
+    pos = win
+    for _ in range(STREAM_WARM_BLOCKS):
+        sd.feed(x2[:, pos % n: pos % n + adv])
+        pos += adv
+    torch.cuda.synchronize(dev)
+    nb = len(sd.block_stats)
+    t0 = time.perf_counter()
+    for _ in range(STREAM_TIMED_BLOCKS):
+        sd.feed(x2[:, pos % n: pos % n + adv])
+        pos += adv
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    return (STREAM_TIMED_BLOCKS * x.shape[0] * adv / dt / 1e6,
+            dt * 1e3 / STREAM_TIMED_BLOCKS, sd.block_stats[nb:])
+
+
+def phase_stream(x, frames, delays, dev, card):
+    """The port's streaming engine on the card at the main path's width."""
+    import torch
+    from opv_tpu_torch.ops import registry
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    feed, want = stream_feed(x, frames, delays, dev)
+    registry.set_viterbi_radix(4)
+    runs, launches, held = {}, {}, []
+    for dtype in ("float32", "int8"):
+        registry.reset_launch_counts()
+        out, sd, per_call, kept = drive_stream(feed, dev, dtype)
+        for k, v in registry.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        held += hold_stream_kernels(kept, dtype)
+        del kept
+        check_stream(out, want, dtype)
+        if sd.reacquisitions < 2:
+            raise AssertionError(f"stream {dtype}: {sd.reacquisitions} "
+                                 "re-acquisitions, the hunt and the re-hunt "
+                                 "need 2")
+        reacq = [ms for tags, ms in per_call if tags == ["reacquire"]]
+        runs[dtype] = dict(tuples=len(out), decoded=sd.decoded,
+                           perfect=sd.perfect,
+                           reacquisitions=sd.reacquisitions,
+                           blocks=sd.stats()["blocks_by_program"],
+                           reacquire_block_ms=reacq,
+                           calls_ms=[round(ms, 3) for _, ms in per_call])
+    need = ("viterbi_r4", "symbol_soft[float32]", "symbol_soft[int8]")
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"a kernel of the stream path never launched: "
+                             f"{launches}")
+    n_want = sum(len(w) for w in want)
+    for dtype, r in runs.items():
+        log(f"[stream] {dtype} rows, {x.shape[0]} ch x {x.shape[1]} samples, "
+            f"block_frames {STREAM_BF}: {n_want}/{n_want} transmitted frames "
+            f"emitted once, byte-exact, metric 0, at their positions "
+            f"({r['tuples']} tuples); re-acquisitions {r['reacquisitions']}; "
+            f"blocks {r['blocks']}; re-acquire blocks "
+            f"{[round(m, 2) for m in r['reacquire_block_ms']]} ms host clock "
+            f"({card})")
+    log(f"[stream] launches over both runs {launches}")
+    for h in held:
+        rel = (f" (rel {h['max_rel_err']:.3g})" if "max_rel_err" in h
+               else ", bit-identical")
+        log(f"[stream] {h['run']} run, {h['program']} block: {h['kernel']} at "
+            f"the engine's operands {h['shape']} against its twin, max "
+            f"|kernel - twin| {h['max_abs_err']:.4g}{rel}")
+    thr = {}
+    for dtype in ("float32", "int8"):
+        msps, ms, blocks = stream_throughput(x, dev, dtype)
+        tags = [b["tag"] for b in blocks]
+        wait = statistics.mean(b["device_wait_ms"] for b in blocks)
+        life = statistics.mean(b["host_ms"] for b in blocks)
+        thr[dtype] = dict(msamples_s=msps, ms_per_block=ms, tags=tags,
+                          device_wait_ms=wait, lifecycle_ms=life)
+        log(f"[stream] throughput {dtype}: {STREAM_TIMED_BLOCKS} blocks "
+            f"{tags.count('steady')} steady, {ms:.3f} ms/block host clock = "
+            f"{msps:.1f} Msamples/s; per block {wait:.3f} ms waiting on the "
+            f"result fetch, {life:.3f} ms lifecycle, the rest append, slide "
+            f"and launch ({card})")
+    four, grid = impaired_feed(x, dev)
+    twins = stream_twin_checks(four, grid, dev)
+    log(f"[stream] card vs cpu twins, 4 ch (clean, 2 x AWGN 2000, gap burst): "
+        f"tuple streams equal ({twins['tuples']} tuples); reacquire p0 "
+        f"{twins['reacquire_p0']} burst_only {twins['burst_only']}, retime "
+        f"delta {twins['retime_delta']}; max |card - cpu| freq_offset "
+        f"{twins['reacquire_freq_offset']:.3g} Hz, frac "
+        f"{max(twins['reacquire_frac'], twins['retime_frac']):.3g}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[stream] peak memory {peak / 2**30:.2f} GiB ({card})")
+    return dict(runs=runs, launches=launches, held=held, throughput=thr,
+                twins=twins, peak_bytes=peak)
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import pathlib
@@ -423,6 +854,8 @@ def main() -> int:
     soft = phase_soft(x, dev)
     launches, steady, peak, state = phase_main(x, frames, delays, dev, card)
     phase_profile(state, card)
+    del state
+    stream = phase_stream(x, frames, delays, dev, card)
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -431,15 +864,18 @@ def main() -> int:
              replaces="opv_tpu/ops/pallas/viterbi.py:145",
              launches=launches["viterbi_r2"], **vit[2]),
     ]
+    for k in kernels:
+        k["launches_stream"] = stream["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
         kernels.append(dict(
             name=key, route="cuda", source="opv_tpu_torch/csrc/symbol_soft.cu",
             replaces="opv_tpu/ops/pallas/correlate.py:37",
-            launches=launches[key], **soft[name]))
+            launches=launches[key], launches_stream=stream["launches"][key],
+            **soft[name]))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
-                      "peak_bytes": peak}), flush=True)
+                      "stream": stream, "peak_bytes": peak}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

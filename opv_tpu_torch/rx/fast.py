@@ -63,10 +63,22 @@ def combine(ab: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     return p[..., 1] - p[..., 0]
 
 
+def require_single_precision(samples: torch.Tensor, where: str) -> None:
+    """Refuse float64 / complex128 samples.  The JAX package computes such
+    input in float64 end to end; the port has only the float32 path, and a
+    silently narrowed result would be a different result."""
+    if samples.dtype in (torch.complex128, torch.float64):
+        raise ValueError(
+            f"{where}: {samples.dtype} samples need the float64 receiver "
+            "path, which the port does not have yet (ROADMAP queue 1, item "
+            "11); convert the input to complex64 (or float32 pairs) first")
+
+
 def dense_soft(samples: torch.Tensor, freq_offset: torch.Tensor,
                stride: int = 1) -> torch.Tensor:
     """(C, N) complex64 -> soft decision at every `stride`-th sample offset,
     (C, (N-40)//stride + 1); position u is sample offset stride*u."""
+    require_single_precision(samples, "dense_soft")
     c, n = samples.shape
     m2 = -(-n // _SPS)
     x = F.pad(torch.view_as_real(samples), (0, 0, 0, (m2 + 1) * _SPS - n))

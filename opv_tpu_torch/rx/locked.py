@@ -11,11 +11,17 @@ phase r = p0 mod 40.  The receiver therefore splits into:
   2. the steady body (_locked_body, also rx_locked_steady): the soft stage
      at the symbol grid only (ops.registry.symbol_soft — the fused CUDA
      kernel on the card), frame slicing + per-frame sync quality, and the
-     batched Viterbi frame finisher (ops.registry.viterbi_batch).
+     batched Viterbi frame finisher (ops.registry.viterbi_batch);
+  3. what the streaming engine (stream/locked.py) adds on top: selective
+     re-acquisition of the channels that lost lock (rx_locked_reacquire)
+     and the folded timing refresh of locked channels
+     (refine_timing_locked, rx_locked_retime).
 
 `samples` is (C, N) complex64, (C, N, 2) float I/Q pairs, or (C, M, 80)
 window rows (row s = samples [40s, 40s+40) as interleaved I/Q) in float32
 or int8 (values = wire samples / INT8_SCALE, or / a per-channel `scale`).
+complex128 / float64 samples raise ValueError: the JAX package computes
+them in float64, a path the port does not have.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.ops import registry
 from opv_tpu_torch.rx.cfo import estimate_cfo_batch
 from opv_tpu_torch.rx.fast import (dense_soft, dense_sync, phase_rot,
-                                   real_columns, tone_vectors)
+                                   real_columns, require_single_precision,
+                                   tone_vectors)
 from opv_tpu_torch.rx.frame_decoder import decode_payloads
 from opv_tpu_torch.rx.sync import normalized_sync, sync_pattern
 
@@ -245,7 +252,52 @@ def rx_locked_steady(samples: torch.Tensor, p0: torch.Tensor,
     """Steady-state hot loop with the grid (p0, frac) and CFO known: blocks
     that advance by whole frame intervals keep p0.  Returns the same dict
     as rx_locked."""
+    require_single_precision(samples, "rx_locked_steady")
     return _locked_body(samples, p0, freq_offset, n_frames, scale, frac)
+
+
+def rx_locked_reacquire(samples: torch.Tensor, p0_old: torch.Tensor,
+                        freq_offset_old: torch.Tensor, keep: torch.Tensor,
+                        n_frames: int, frac_old=None):
+    """Selective re-acquisition: channels with keep=True retain their grid
+    (p0, frac) and CFO; the others are hunted over the whole (C, N)
+    complex64 block.
+
+    The hunt runs at the carried CFO (zero for channels never locked): the
+    40-sample tone correlation loses <2% even at the +-2 kHz AFC clamp.  An
+    isolated single-frame burst (a hunt candidate with no second sync one
+    frame later) is processed on its own grid and flagged in `burst_only`,
+    so the streaming engine can emit its frame without taking the lock.
+    CFO is estimated on one frame interval at the acquired p0 (the block
+    may hold noise before a mid-block burst), then refined twice by the
+    feed-forward discriminator; the newly acquired channels take their
+    sub-sample timing from the hunt's own dense correlation, folded.
+    Returns rx_locked's dict plus burst_only (C,) bool."""
+    c = samples.shape[0]
+    hunt_foff = torch.where(keep, freq_offset_old,
+                            torch.zeros_like(freq_offset_old))
+    raw, norm = dense_sync(dense_soft(samples, hunt_foff))
+    p0_new, found, p0_u, found_u = hunt_grid(raw, norm)
+    burst_only = ~keep & ~found & found_u
+    p0 = torch.where(keep | ~(found | found_u), p0_old.to(torch.int32),
+                     torch.where(found, p0_new, p0_u))
+    seg = _slice_rows(samples, p0, _SPF)
+    cfo_new = estimate_cfo_batch(seg).to(torch.float32)
+    # seg already starts at the acquired sync, so the refine slice is the
+    # identity
+    at_seg = torch.zeros_like(p0)
+    cfo_new = refine_cfo_locked(seg, at_seg, cfo_new)
+    cfo_new = refine_cfo_locked(seg, at_seg, cfo_new)
+    freq_offset = torch.where(keep, freq_offset_old, cfo_new)
+    if frac_old is None:
+        frac_old = torch.zeros(c, dtype=torch.float32, device=samples.device)
+    p0_r, frac_new = refine_timing_from_raw(raw, p0)
+    acquired = ~keep & (found | found_u)
+    p0 = torch.where(acquired, p0_r, p0)
+    frac = torch.where(acquired, frac_new, frac_old.to(torch.float32))
+    out = _locked_body(samples, p0, freq_offset, n_frames, frac=frac)
+    out["burst_only"] = burst_only
+    return out
 
 
 def rx_locked(samples: torch.Tensor, n_frames: int, freq_offset=None,
@@ -382,6 +434,62 @@ def refine_timing_from_raw(raw: torch.Tensor, p0: torch.Tensor):
     pos = torch.clamp(p0.to(torch.float32) + (_fold_est(seg) - half), min=0.0)
     fl = torch.floor(pos)
     return fl.to(torch.int32), (pos - fl).to(torch.float32)
+
+
+def refine_timing_locked(samples: torch.Tensor, p0: torch.Tensor,
+                         freq_offset: torch.Tensor, n_frames: int):
+    """Sub-sample timing at a locked grid, folded over n_frames intervals.
+
+    One slab per frame interval, starting 20 samples before p0 + k*86,720
+    (clamped at 0), is correlated densely; the +-20-sample offsets of every
+    slab are summed and the apex refined (_fold_est).  A slab that would
+    run past the block's end is zeroed, not clamp-shifted, so it adds
+    nothing misaligned.  Returns ((C,) int32 p0, (C,) float32 frac, (C, 43)
+    fold), with the sync at p0 + frac and fold bin b at sample offset
+    max(p0 - 20, 0) + b of each frame interval.  Where even slab 0 runs
+    past the end, the fold is all zero: the input p0 is kept with frac 0.5
+    (the centre of the 2-sample apex plateau)."""
+    c, n_total = samples.shape
+    half = _SPS // 2
+    n_off = 2 * half + 1
+    # slab: the offsets, the sync correlation's 24-symbol reach, one
+    # symbol and an interpolation margin
+    slab_len = n_off + (_SB - 1) * _SPS + _SPS + 8
+    base = torch.clamp(p0.to(torch.int32) - half, min=0)
+    zero = torch.zeros((), dtype=samples.dtype, device=samples.device)
+    slabs = []
+    for k in range(n_frames):
+        st = base + k * _SPF
+        ok = (st + slab_len <= n_total)[:, None]
+        slabs.append(torch.where(ok, _slice_rows(samples, st, slab_len), zero))
+    # zero padding past the correlators' valid trim (39-sample tone window
+    # and 920-sample dilated sync reach) so raw covers every slab offset
+    slabs.append(torch.zeros((c, 1024), dtype=samples.dtype,
+                             device=samples.device))
+    raw, _ = dense_sync(dense_soft(torch.cat(slabs, dim=1), freq_offset))
+    raw = raw[:, : n_frames * slab_len].reshape(c, n_frames, slab_len)
+    fold = raw[:, :, : n_off + 2].sum(1)
+    pos = base.to(torch.float32) + _fold_est(fold)
+    fl = torch.floor(pos)
+    valid0 = base + slab_len <= n_total
+    p0r = torch.where(valid0, fl.to(torch.int32), p0.to(torch.int32))
+    frac = torch.where(valid0, pos - fl, torch.full_like(pos, 0.5))
+    return p0r, frac.to(torch.float32), fold
+
+
+def rx_locked_retime(samples: torch.Tensor, p0: torch.Tensor,
+                     freq_offset: torch.Tensor, n_frames: int = 1):
+    """Timing refresh of locked channels: refine_timing_locked anchored one
+    frame after p0 (so a backward drift across the block start stays in
+    view).  Returns ((C,) int32 delta clipped to +-20, (C,) float32 frac,
+    (C, 43) fold): the corrected grid is p0 + delta with frac, and fold bin
+    b sits at offset p0 - 20 + b, for accumulation across blocks."""
+    p0 = p0.to(torch.int32)
+    p0r, frac, fold = refine_timing_locked(samples, p0 + _SPF, freq_offset,
+                                           n_frames)
+    half = _SPS // 2
+    delta = torch.clamp(p0r - _SPF - p0, -half, half).to(torch.int32)
+    return delta, frac, fold
 
 
 def state_from_numpy(d, device=None) -> dict:

@@ -1,0 +1,61 @@
+"""Checkpoint/resume of the streaming engine's state.
+
+The state is a flat dict (LockedStreamDemodulator.state_tree).  Its leaves
+are stored in the JAX package's layout (opv_tpu/stream/state.py): one
+.npz holding `n_leaves` and `leaf_{i}`, the leaves in the order
+jax.tree.flatten gives a dict, which is by sorted key.  A checkpoint
+written by either package therefore loads in the other.
+
+Tensors are stored as numpy arrays; bfloat16 tensors widened to float32
+(exact), since numpy has no bfloat16.  Both engines cast a float32 buffer
+to their own buffer dtype on load.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _norm(path: str) -> str:
+    # np.savez appends .npz on write; normalize so load finds the same file
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _keys(tree) -> list:
+    if not isinstance(tree, dict):
+        raise TypeError(f"state must be a flat dict, got {type(tree).__name__}")
+    nested = [k for k, v in tree.items() if isinstance(v, (dict, list, tuple))]
+    if nested:
+        raise TypeError(f"state must be a flat dict; nested entries {nested}")
+    return sorted(tree)
+
+
+def to_host(x) -> np.ndarray:
+    """A host numpy copy of a tensor, bfloat16 widened to float32 (exact);
+    a numpy value passes through.  A CPU tensor is copied too, so the
+    array never aliases a tensor the caller keeps."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float32)
+        return x.cpu().numpy() if x.is_cuda else x.numpy().copy()
+    return np.asarray(x)
+
+
+def save_state(path: str, tree: dict) -> None:
+    leaves = [to_host(tree[k]) for k in _keys(tree)]
+    np.savez(_norm(path), n_leaves=np.int64(len(leaves)),
+             **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+
+
+def load_state(path: str, like: dict) -> dict:
+    """Restore a state saved with save_state (by either package), using
+    `like` (a state of the same engine layout) for the keys."""
+    keys = _keys(like)
+    with np.load(_norm(path)) as data:
+        if int(data["n_leaves"]) != len(keys):
+            raise ValueError(
+                f"checkpoint has {int(data['n_leaves'])} leaves but the "
+                f"target structure has {len(keys)} — wrong `like` template?")
+        return {k: data[f"leaf_{i}"] for i, k in enumerate(keys)}

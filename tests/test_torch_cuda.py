@@ -15,7 +15,8 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from chip_smoke import viterbi_inputs  # noqa: E402
+from chip_smoke import (impaired_feed, stream_twin_checks,  # noqa: E402
+                        viterbi_inputs)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
 from opv_tpu_torch.ops import registry  # noqa: E402
@@ -213,3 +214,49 @@ def test_slice_on_card_matches_cpu_twins(cuda_dev, odd_n):
     assert float((gpu["freq_offset"].cpu() - cpu["freq_offset"]).abs().max()) <= 1.0
     for c in range(2):
         assert torch.equal(steady["frames"][c].cpu(), frames)
+
+
+@pytest.mark.parametrize("name,offsets", [("cfo500", (0, 17)), ("awgn8", (0, 29))])
+def test_golden_captures_on_card_match_cpu_twins(cuda_dev, name, offsets):
+    """rx_locked through the kernels on the golden captures decodes what the
+    CPU twins decode, and so does the steady body on int8 rows."""
+    golden = pathlib.Path(__file__).resolve().parent / "golden"
+    raw = np.fromfile(golden / f"{name}.iq", dtype="<i2").reshape(-1, 2)
+    s = torch.from_numpy((raw[:, 0] + 1j * raw[:, 1]).astype(np.complex64))
+    x = torch.stack([torch.cat([torch.zeros(o, dtype=s.dtype), s])[:len(s)]
+                     for o in offsets])
+    n_frames = len(s) // CONFIG.samples_per_frame - 1
+    cpu = rx_locked(x, n_frames=n_frames)
+    registry.reset_launch_counts()
+    gpu = rx_locked(x.to(cuda_dev), n_frames=n_frames)
+    rows = to_window_rows(x, torch.int8)
+    st_cpu = rx_locked_steady(rows, cpu["p0"], cpu["freq_offset"], n_frames,
+                              frac=cpu["frac"])
+    st_gpu = rx_locked_steady(rows.to(cuda_dev), gpu["p0"], gpu["freq_offset"],
+                              n_frames, frac=gpu["frac"])
+    torch.cuda.synchronize()
+    counts = registry.launch_counts()
+    assert counts["viterbi_r4"] > 0 and counts["symbol_soft[float32]"] > 0
+    assert counts["symbol_soft[int8]"] > 0
+    for k in ("frames", "metrics", "frame_valid", "decode_ok", "p0"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+        assert torch.equal(st_gpu[k].cpu(), st_cpu[k]), k
+    assert float((gpu["freq_offset"].cpu() - cpu["freq_offset"]).abs().max()) <= 1.0
+
+
+def test_stream_engine_and_reacquire_on_card_match_cpu_twins(cuda_dev):
+    """The streaming engine on the card against the engine on the CPU on a
+    4-channel impaired feed (clean, two in AWGN 2000, the gap-burst
+    pattern), float32 and int8 rows: identical tuple streams, sync quality
+    within 1e-4.  rx_locked_reacquire (mixed keep) and rx_locked_retime on
+    its first window: p0, frames, metrics, burst_only and the deltas equal,
+    freq_offset within 1 Hz, frac within 1e-3."""
+    x, _ = _signal(20, (0, 488, 976))
+    feed, grid = impaired_feed(x.to(cuda_dev), cuda_dev)
+    registry.reset_launch_counts()
+    out = stream_twin_checks(feed, grid, cuda_dev)
+    assert min(registry.launch_counts()[k] for k in (
+        "viterbi_r4", "symbol_soft[float32]", "symbol_soft[int8]")) > 0
+    p0 = out["reacquire_p0"]                  # channels 0 and 2 kept
+    assert p0[0] == grid[0] and p0[2] == grid[2] and abs(p0[1] - grid[1]) <= 1
+    assert out["tuples"]["float32"] > 0

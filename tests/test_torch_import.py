@@ -27,6 +27,9 @@ MODULES = [
     "opv_tpu_torch.ops.viterbi",
     "opv_tpu_torch.ops.symbol_soft",
     "opv_tpu_torch.ops.registry",
+    "opv_tpu_torch.stream",
+    "opv_tpu_torch.stream.locked",
+    "opv_tpu_torch.stream.state",
     "opv_tpu_torch.entry",
 ]
 
