@@ -44,8 +44,27 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               against the engine on the CPU (identical tuples, sync
               quality within 1e-4), and rx_locked_reacquire / _retime on
               its first window, card against CPU
-  8. the kernels JSON line (launches: the main path's; launches_stream:
-     the stream phase's two runs), the card line, then the result line
+  8. modes    the engine's other modes on the card: pipelined on the
+              stream phase's feed with float32 rows and with int8 rows
+              plus AGC (channels 48-55 at 1/256): every transmitted frame
+              once, byte-exact, metric 0, at its position, tuples equal to
+              the synchronous engine's, the weak channels' step below 1,
+              each program's first K3 and K1 call held against the twins
+              (the int8 one with its per-channel rescale); synchronous
+              against pipelined on bench.py's cyclic feed (float32 and
+              int8 + AGC, 3 alternations of 12 timed blocks, Msamples/s
+              and the timing split), with a third arm whose every timed
+              pipelined launch runs under
+              torch.cuda.set_sync_debug_mode("error"); eager serving at
+              opv-modem --fast's configuration (1 channel, block_frames 1,
+              frame-sized feeds: the window-gated tuples, one frame ahead,
+              p50/p95 host ms per feed); hunt_stride 2 against 1 (the same
+              true frames at the same positions, re-acquire block ms); and
+              the pipelined int8 AGC engine on a 4-channel feed with a weak
+              channel and a level step, card against CPU twins
+  9. the kernels JSON line (launches: the main path's; launches_stream:
+     the stream phase's two runs; launches_modes: the two pipelined runs
+     of the modes phase), the card line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 There is no CPU fallback: without a CUDA device it exits non-zero and
@@ -100,6 +119,14 @@ STREAM_Q_TOL = 1e-4
 STREAM_TWIN_CHUNK = 70_001
 STREAM_WARM_BLOCKS = 5
 STREAM_TIMED_BLOCKS = 12
+#: the modes phase: channels of the stream feed scaled by MODES_WEAK_GAIN
+#: in the int8 AGC runs (AGC must adopt a finer step there); alternations
+#: of the synchronous/pipelined A/B; the AGC cadence of the 4-channel
+#: card-vs-CPU check (a level step mid-stream is re-quantized at once)
+MODES_WEAK = slice(48, 56)
+MODES_WEAK_GAIN = 1.0 / 256.0
+MODES_ALTERNATIONS = 3
+MODES_AGC_BLOCKS = 2
 
 
 def log(msg: str) -> None:
@@ -529,17 +556,18 @@ def spy_kernels(sd):
     return held, remove
 
 
-def drive_stream(feed, dev, dtype: str):
+def drive_stream(feed, dev, dtype: str, spy: bool = True, **engine):
     """The port's engine over `feed` as a stream: one window, then
     advance-sized chunks, then flush() (each chunk completes one block).
+    `engine`: more LockedStreamDemodulator options (agc defaults to off).
     Returns (tuples, engine, [(block tags, host ms)] per call, the
-    kernels' operands kept by spy_kernels)."""
+    kernels' operands kept by spy_kernels, or {} without `spy`)."""
     import torch
     from opv_tpu_torch.stream import LockedStreamDemodulator
     sd = LockedStreamDemodulator(feed.shape[0], block_frames=STREAM_BF,
-                                 dtype=dtype, agc=False, device=dev,
-                                 timing=True)
-    held, remove_spies = spy_kernels(sd)
+                                 dtype=dtype, device=dev, timing=True,
+                                 **{"agc": False, **engine})
+    held, remove_spies = spy_kernels(sd) if spy else ({}, lambda: None)
     n = feed.shape[1]
     calls = [lambda: sd.feed(feed[:, :sd.window])]
     calls += [lambda p=p: sd.feed(feed[:, p:p + sd.advance])
@@ -696,18 +724,21 @@ def stream_twin_checks(feed, grid, dev):
                 retime_delta=t_dev[0].cpu().tolist(), **errs)
 
 
-def stream_throughput(x, dev, dtype: str):
+def stream_throughput(x, dev, dtype: str, strict: bool = False, **engine):
     """bench.py's streaming pattern: the clean stream (its zero tail
     dropped) as a cyclic feed; one window, STREAM_WARM_BLOCKS advance-sized
     blocks to warm up, then STREAM_TIMED_BLOCKS timed on the host clock,
-    lifecycle and result fetch included.  Returns (Msamples/s, ms per
-    block, the timed blocks' engine records: tag, device_wait_ms (one
-    synchronize and the result copies) and host_ms (the lifecycle))."""
+    lifecycle and result fetch included.  `engine`: more engine options
+    (agc defaults to off); `strict` (pipelined engines): every timed
+    block's predicted launch runs under strict_launches.  Returns
+    (Msamples/s, ms per block, the timed blocks' engine records: tag,
+    device_wait_ms (the wait for the block's results) and host_ms (the
+    lifecycle))."""
     import torch
     from opv_tpu_torch.stream import LockedStreamDemodulator
     sd = LockedStreamDemodulator(x.shape[0], block_frames=STREAM_BF,
-                                 dtype=dtype, agc=False, device=dev,
-                                 timing=True)
+                                 dtype=dtype, device=dev, timing=True,
+                                 **{"agc": False, **engine})
     n = FRAMES * SPF
     adv, win = sd.advance, sd.window
     if n % adv or n <= win:
@@ -720,12 +751,16 @@ def stream_throughput(x, dev, dtype: str):
         pos += adv
     torch.cuda.synchronize(dev)
     nb = len(sd.block_stats)
+    checked = strict_launches(sd) if strict else None
     t0 = time.perf_counter()
     for _ in range(STREAM_TIMED_BLOCKS):
         sd.feed(x2[:, pos % n: pos % n + adv])
         pos += adv
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    if strict and checked[0] != STREAM_TIMED_BLOCKS:
+        raise AssertionError(f"{checked[0]} of {STREAM_TIMED_BLOCKS} timed "
+                             "pipelined blocks launched as predicted")
     return (STREAM_TIMED_BLOCKS * x.shape[0] * adv / dt / 1e6,
             dt * 1e3 / STREAM_TIMED_BLOCKS, sd.block_stats[nb:])
 
@@ -805,6 +840,229 @@ def phase_stream(x, frames, delays, dev, card):
                 twins=twins, peak_bytes=peak)
 
 
+def strict_launches(sd) -> list:
+    """Run every predicted launch of the pipelined engine `sd` (window
+    complete -> predicted program queued, _launch_predicted) under
+    torch.cuda.set_sync_debug_mode("error"): a synchronizing CUDA call
+    there raises.  Returns [launches checked], counting as they run."""
+    import torch
+    checked = [0]
+    launch = sd._launch_predicted
+
+    def strict(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = launch(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked[0] += 1
+        return out
+    sd._launch_predicted = strict
+    return checked
+
+
+def agc_twin_feed(x, dev):
+    """(4, N) complex64 on `dev` for the AGC card-vs-CPU check: the main
+    path's stream clean, in AWGN (sigma 2000 per component), at
+    MODES_WEAK_GAIN, and stepping to MODES_WEAK_GAIN after 9 frames."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(STREAM_GAP_SEEDS[0])
+    noise = 2000.0 * torch.complex(
+        torch.randn(x.shape[1], generator=g, device=dev),
+        torch.randn(x.shape[1], generator=g, device=dev))
+    step = torch.ones(x.shape[1], device=dev)
+    step[9 * SPF:] = MODES_WEAK_GAIN
+    return torch.stack([x[0], x[1] + noise, x[2] * MODES_WEAK_GAIN,
+                        x[3] * step])
+
+
+def serve_eager(x, dev):
+    """opv-modem --fast's engine (1 channel, block_frames 1, eager) and the
+    window-gated one on channel 1 of the main path's stream, fed in
+    frame-sized chunks.  Returns {eager: (tuples, per-feed tuple counts,
+    per-feed host ms)} for eager False and True."""
+    import torch
+    from opv_tpu_torch.stream import LockedStreamDemodulator
+    s = x[1:2]
+    runs = {}
+    for eager in (False, True):
+        sd = LockedStreamDemodulator(1, block_frames=1, eager=eager,
+                                     device=dev)
+        out, counts, ms = [], [], []
+        for off in range(0, s.shape[1], SPF):
+            t0 = time.perf_counter()
+            got = sd.feed(s[:, off:off + SPF])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out += got
+            counts.append(len(got))
+        out += sd.flush()
+        torch.cuda.synchronize(dev)
+        runs[eager] = (out, counts, ms)
+    return runs
+
+
+def phase_modes(x, frames, delays, dev, card):
+    """The engine's other modes on the card: pipelined (float32, int8 with
+    AGC), its launch free of synchronization, the synchronous/pipelined
+    A/B, eager serving, hunt_stride 2 against 1, and the AGC path against
+    the CPU twins."""
+    import torch
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.stream import LockedStreamDemodulator
+    feed, want = stream_feed(x, frames, delays, dev)
+    agc_feed = feed.clone()
+    agc_feed[MODES_WEAK] *= MODES_WEAK_GAIN
+    runs = {"float32": ("float32", feed), "int8_agc": ("int8", agc_feed)}
+    # 1. pipelined engines: the phase's counted run
+    registry.set_viterbi_radix(4)
+    registry.reset_launch_counts()
+    piped = {}
+    for name, (dtype, f) in runs.items():
+        piped[name] = drive_stream(f, dev, dtype, agc=True, pipeline=True)
+    launches = registry.launch_counts()
+    need = ("viterbi_r4", "symbol_soft[float32]", "symbol_soft[int8]")
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"a kernel of the pipelined path never "
+                             f"launched: {launches}")
+    held = []
+    for name, (out, sd, per_call, kept) in piped.items():
+        held += hold_stream_kernels(kept, f"pipelined {name}")
+        if name == "int8_agc":
+            # the int8 steady K3 call, held above, took per-channel steps
+            resc = kept[("steady", "soft")][2]
+            weak_max = float(resc[MODES_WEAK].max())
+            others = float(resc[:MODES_WEAK.start].min())
+            if not weak_max < others:
+                raise AssertionError(f"int8 AGC steady K3: resc of the weak "
+                                     f"channels {resc[MODES_WEAK].tolist()} "
+                                     "not below the others'")
+            next(h for h in held[-4:] if h["program"] == "steady"
+                 and h["kernel"].startswith("symbol_soft")).update(
+                     resc_weak_max=weak_max, resc_others_min=others)
+            weak = sd._scale_np[MODES_WEAK]
+            if not (weak < 1.0).all():
+                raise AssertionError(f"weak channels' AGC step {weak}")
+        kept.clear()
+        check_stream(out, want, f"pipelined {name}")
+        dtype, f = runs[name]
+        sync, sd_s, _, _ = drive_stream(f, dev, dtype, spy=False, agc=True)
+        same_stream(out, sync, f"pipelined {name} vs synchronous")
+        for k in ("decoded", "perfect", "reacquisitions"):
+            if getattr(sd, k) != getattr(sd_s, k):
+                raise AssertionError(f"pipelined {name}: {k} {getattr(sd, k)}"
+                                     f" against {getattr(sd_s, k)}")
+        piped[name] = dict(tuples=len(out), reacquisitions=sd.reacquisitions,
+                           blocks=sd.stats()["blocks_by_program"],
+                           weak_step=[float(v) for v in
+                                      sd._scale_np[MODES_WEAK]])
+        log(f"[modes] pipelined {name}: {sum(len(w) for w in want)} "
+            f"transmitted frames once, byte-exact, metric 0, at their "
+            f"positions; {len(out)} tuples equal to the synchronous "
+            f"engine's; re-acquisitions {sd.reacquisitions}; blocks "
+            f"{piped[name]['blocks']}"
+            + (f"; weak channels' step {weak.min():.4f}-{weak.max():.4f}"
+               if name == "int8_agc" else ""))
+    log(f"[modes] launches over both pipelined runs {launches}")
+    for h in held:
+        extra = (f"; resc weak <= {h['resc_weak_max']:.4g} < others >= "
+                 f"{h['resc_others_min']:.4g}" if "resc_weak_max" in h else "")
+        rel = (f" (rel {h['max_rel_err']:.3g})" if "max_rel_err" in h
+               else ", bit-identical")
+        log(f"[modes] {h['run']} run, {h['program']} block: {h['kernel']} at "
+            f"the engine's operands {h['shape']} against its twin, max "
+            f"|kernel - twin| {h['max_abs_err']:.4g}{rel}{extra}")
+    # 2-3. synchronous against pipelined; a third arm runs every timed
+    # pipelined launch under the sync-debug check, whose own cost would
+    # otherwise confound the A/B
+    ab = {}
+    arms = (("synchronous", False, False), ("pipelined", True, False),
+            ("pipelined, sync-debug check", True, True))
+    for dtype in ("float32", "int8"):
+        for alt in range(MODES_ALTERNATIONS):
+            for arm, pipe, strict in arms:
+                msps, ms, blocks = stream_throughput(
+                    x, dev, dtype, strict=strict, agc=True, pipeline=pipe)
+                rec = dict(msamples_s=msps, ms_per_block=ms,
+                           device_wait_ms=statistics.mean(
+                               b["device_wait_ms"] for b in blocks),
+                           lifecycle_ms=statistics.mean(
+                               b["host_ms"] for b in blocks),
+                           steady=sum(b["tag"] == "steady" for b in blocks))
+                key = f"{dtype}{'_agc' if dtype == 'int8' else ''} {arm}"
+                ab.setdefault(key, []).append(rec)
+                log(f"[modes] A/B {key} #{alt + 1}: {ms:.3f} ms/block = "
+                    f"{msps:.1f} Msamples/s; per block "
+                    f"{rec['device_wait_ms']:.3f} ms waiting on the results, "
+                    f"{rec['lifecycle_ms']:.3f} ms lifecycle; "
+                    f"{rec['steady']}/{STREAM_TIMED_BLOCKS} steady ({card})")
+    log(f"[modes] no synchronizing call in {2 * MODES_ALTERNATIONS} x "
+        f"{STREAM_TIMED_BLOCKS} timed pipelined launches under "
+        f"set_sync_debug_mode('error')")
+    # 4. eager serving at opv-modem --fast's configuration
+    served = serve_eager(x, dev)
+    same_stream(served[True][0], served[False][0], "eager vs window-gated")
+    cb, ce = np.cumsum(served[False][1]), np.cumsum(served[True][1])
+    first = int(np.argmax(ce > 0))
+    if not (ce[first:] - cb[first:] == 1).all():
+        raise AssertionError(f"eager lead: {served[True][1]} against "
+                             f"{served[False][1]}")
+    eager = {str(k): dict(tuples=len(v[0]),
+                          p50_ms=float(np.percentile(v[2], 50)),
+                          p95_ms=float(np.percentile(v[2], 95)))
+             for k, v in served.items()}
+    log(f"[modes] eager, 1 ch, block_frames 1, {len(served[True][1])} "
+        f"frame-sized feeds: {len(served[True][0])} tuples equal to the "
+        f"window-gated engine's, one frame ahead from feed {first}; host ms "
+        f"per feed p50 {eager['True']['p50_ms']:.3f} p95 "
+        f"{eager['True']['p95_ms']:.3f} (window-gated p50 "
+        f"{eager['False']['p50_ms']:.3f} p95 {eager['False']['p95_ms']:.3f}) "
+        f"({card})")
+    # 5. hunt_stride 2 against 1 on the stream feed
+    hunts = {}
+    truth = [{bytes(f.cpu().numpy()) for f, _ in w} for w in want]
+    for hs in (1, 2):
+        out, sd, per_call, _ = drive_stream(feed, dev, "float32", spy=False,
+                                            hunt_stride=hs)
+        check_stream(out, want, f"hunt_stride {hs}")
+        true = sorted((r[0], r[1], r[4]) for r in out if r[1] in truth[r[0]])
+        hunts[hs] = (true, [ms for tags, ms in per_call
+                            if tags == ["reacquire"]], sd.reacquisitions)
+    if hunts[1][0] != hunts[2][0]:
+        raise AssertionError("hunt_stride 2 recovered other true frames or "
+                             "positions than hunt_stride 1")
+    log(f"[modes] hunt_stride 2 vs 1: the same {len(hunts[1][0])} true "
+        f"frames at the same positions; re-acquire blocks "
+        f"{[round(m, 2) for m in hunts[2][1]]} vs "
+        f"{[round(m, 2) for m in hunts[1][1]]} ms host clock; "
+        f"re-acquisitions {hunts[2][2]} vs {hunts[1][2]} ({card})")
+    # 6. the AGC path, pipelined, card against the CPU twins
+    four = agc_twin_feed(x, dev)
+    cpu = torch.device("cpu")
+    agc_runs = []
+    for d in (dev, cpu):
+        sd = LockedStreamDemodulator(4, block_frames=STREAM_BF, dtype="int8",
+                                     pipeline=True, device=d)
+        sd._AGC_BLOCKS = MODES_AGC_BLOCKS
+        src, out = four.to(d), []
+        for off in range(0, src.shape[1], STREAM_TWIN_CHUNK):
+            out += sd.feed(src[:, off:off + STREAM_TWIN_CHUNK])
+        agc_runs.append((out + sd.flush(), sd._scale_np.copy()))
+    same_stream(agc_runs[0][0], agc_runs[1][0], "pipelined int8 AGC card vs cpu")
+    if not np.array_equal(agc_runs[0][1], agc_runs[1][1]):
+        raise AssertionError(f"AGC steps card {agc_runs[0][1]} cpu "
+                             f"{agc_runs[1][1]}")
+    log(f"[modes] pipelined int8 AGC, 4 ch (clean, AWGN 2000, weak, level "
+        f"step), _AGC_BLOCKS {MODES_AGC_BLOCKS}: card tuples equal the CPU "
+        f"twins' ({len(agc_runs[0][0])} tuples), steps {agc_runs[0][1]}")
+    return dict(launches=launches, pipelined=piped, held=held, ab=ab,
+                eager=eager, hunt_stride={hs: dict(true_frames=len(v[0]),
+                                                   reacquire_block_ms=v[1],
+                                                   reacquisitions=v[2])
+                                          for hs, v in hunts.items()},
+                agc_twin=dict(tuples=len(agc_runs[0][0]),
+                              steps=agc_runs[0][1].tolist()))
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import pathlib
@@ -856,6 +1114,7 @@ def main() -> int:
     phase_profile(state, card)
     del state
     stream = phase_stream(x, frames, delays, dev, card)
+    modes = phase_modes(x, frames, delays, dev, card)
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -866,6 +1125,7 @@ def main() -> int:
     ]
     for k in kernels:
         k["launches_stream"] = stream["launches"][k["name"]]
+        k["launches_modes"] = modes["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -873,9 +1133,10 @@ def main() -> int:
             name=key, route="cuda", source="opv_tpu_torch/csrc/symbol_soft.cu",
             replaces="opv_tpu/ops/pallas/correlate.py:37",
             launches=launches[key], launches_stream=stream["launches"][key],
-            **soft[name]))
+            launches_modes=modes["launches"][key], **soft[name]))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
-                      "stream": stream, "peak_bytes": peak}), flush=True)
+                      "stream": stream, "modes": modes,
+                      "peak_bytes": peak}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@
 TX: randomize -> conv-encode (byte 133 first, MSB-first bits) -> interleave.
 RX finishing: pack the Viterbi bits in reverse byte order -> derandomize.
 Shape-polymorphic over leading batch axes; the tables live on the input's
-device."""
+device, copied there once (device_table)."""
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -19,8 +21,13 @@ from opv_tpu_torch.core.lfsr import randomizer_mask
 _SHIFTS_MSB = (7, 6, 5, 4, 3, 2, 1, 0)
 
 
-def _table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+@functools.lru_cache(maxsize=None)
+def device_table(make, device: torch.device, dtype=None) -> torch.Tensor:
+    """The constant host table make() on `device` (cast to `dtype`), copied
+    there once and kept: a copy from pageable host memory to the card
+    synchronizes the stream, so a table copied per call would make every
+    call wait for the work queued before it.  Callers only read it."""
+    return torch.from_numpy(np.ascontiguousarray(make())).to(device, dtype)
 
 
 def bytes_to_bits_msb(b: torch.Tensor) -> torch.Tensor:
@@ -39,7 +46,8 @@ def bits_to_bytes_msb(bits: torch.Tensor) -> torch.Tensor:
 
 def randomize(payload: torch.Tensor) -> torch.Tensor:
     """XOR-whiten a (..., 134) frame; the mask XOR is its own inverse."""
-    return payload.to(torch.uint8) ^ _table(randomizer_mask(), payload)
+    return payload.to(torch.uint8) ^ device_table(randomizer_mask,
+                                                  payload.device)
 
 
 derandomize = randomize
@@ -50,7 +58,7 @@ def encode_frame(payload: torch.Tensor) -> torch.Tensor:
     rnd = randomize(payload)
     u = bytes_to_bits_msb(rnd.flip(-1))
     enc = conv_encode_bits(u)
-    return enc[..., _table(interleave_perm(), enc).long()]
+    return enc[..., device_table(interleave_perm, enc.device, torch.int64)]
 
 
 def pack_frame_bits(bits: torch.Tensor) -> torch.Tensor:

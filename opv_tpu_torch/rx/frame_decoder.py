@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 from opv_tpu_torch.config import CONFIG
-from opv_tpu_torch.core.framing import derandomize, pack_frame_bits
+from opv_tpu_torch.core.framing import (derandomize, device_table,
+                                        pack_frame_bits)
 from opv_tpu_torch.core.interleave import deinterleave_gather
 from opv_tpu_torch.ops import registry
 
@@ -28,6 +29,6 @@ def decode_payloads(soft_payloads: torch.Tensor):
     """(B, 2144) float soft symbols -> (frames (B, 134) uint8, metrics (B,)
     int32, ok (B,) bool).  Metric 0 is a perfect frame."""
     q, ok = quantize_soft(soft_payloads)
-    gather = torch.from_numpy(deinterleave_gather()).to(q.device).long()
+    gather = device_table(deinterleave_gather, q.device, torch.int64)
     bits, metrics = registry.viterbi_batch(q[..., gather].contiguous())
     return derandomize(pack_frame_bits(bits)), metrics, ok

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from opv_tpu_torch.config import CONFIG
+from opv_tpu_torch.core.framing import device_table
 from opv_tpu_torch.ops import registry
 from opv_tpu_torch.rx.cfo import estimate_cfo_batch
 from opv_tpu_torch.rx.fast import (dense_soft, dense_sync, phase_rot,
@@ -210,7 +211,7 @@ def _extract_frames(soft: torch.Tensor, k0: torch.Tensor, n_frames: int):
     w = _slice_rows(padded, torch.clamp(k0, 0, nsym), span)
     fr = w.reshape(c, n_frames, _FS)
     sync_w = fr[:, :, :_SB]
-    pat = torch.as_tensor(sync_pattern(), dtype=soft.dtype, device=soft.device)
+    pat = device_table(sync_pattern, soft.device, soft.dtype)
     raw = sync_w @ pat
     q = normalized_sync(raw, sync_w.abs().sum(-1))
     return fr[:, :, _SB:], q, raw
@@ -273,14 +274,54 @@ def rx_locked_reacquire(samples: torch.Tensor, p0_old: torch.Tensor,
     feed-forward discriminator; the newly acquired channels take their
     sub-sample timing from the hunt's own dense correlation, folded.
     Returns rx_locked's dict plus burst_only (C,) bool."""
-    c = samples.shape[0]
+    raw, p0, acquired, burst_only = _hunt(samples, p0_old, freq_offset_old,
+                                          keep, 1)
+    freq_offset = rx_locked_reacquire_cfo(samples, p0, freq_offset_old, keep)
+    if frac_old is None:
+        frac_old = torch.zeros(samples.shape[0], dtype=torch.float32,
+                               device=samples.device)
+    p0_r, frac_new = refine_timing_from_raw(raw, p0)
+    p0 = torch.where(acquired, p0_r, p0)
+    frac = torch.where(acquired, frac_new, frac_old.to(torch.float32))
+    out = _locked_body(samples, p0, freq_offset, n_frames, frac=frac)
+    out["burst_only"] = burst_only
+    return out
+
+
+def _hunt(samples, p0_old, freq_offset_old, keep, stride: int):
+    """The re-acquisition's dense hunt at sample stride `stride` ->
+    (raw (C, M), p0 (C,) int32 in samples, acquired (C,), burst_only (C,)):
+    kept channels and channels where nothing qualifies keep p0_old; a
+    verified candidate wins over an unverified one (a lone burst)."""
     hunt_foff = torch.where(keep, freq_offset_old,
                             torch.zeros_like(freq_offset_old))
-    raw, norm = dense_sync(dense_soft(samples, hunt_foff))
-    p0_new, found, p0_u, found_u = hunt_grid(raw, norm)
+    raw, norm = dense_sync(dense_soft(samples, hunt_foff, stride), stride)
+    p0_new, found, p0_u, found_u = hunt_grid(raw, norm, stride)
     burst_only = ~keep & ~found & found_u
     p0 = torch.where(keep | ~(found | found_u), p0_old.to(torch.int32),
                      torch.where(found, p0_new, p0_u))
+    return raw, p0, ~keep & (found | found_u), burst_only
+
+
+def rx_locked_hunt_strided(samples: torch.Tensor, p0_old: torch.Tensor,
+                           freq_offset_old: torch.Tensor, keep: torch.Tensor,
+                           stride: int = 2):
+    """The dense hunt of rx_locked_reacquire at sample stride `stride`
+    (default 2: detection-safe on the 2-sample MSK sync apex plateau, half
+    the dense pass).  Returns dict(p0 (C,) int32 in samples, acquired (C,)
+    bool, burst_only (C,) bool); the sub-sample grid comes from a full-
+    resolution refine afterwards (rx_locked_reacquire_strided)."""
+    _, p0, acquired, burst_only = _hunt(samples, p0_old, freq_offset_old,
+                                        keep, stride)
+    return dict(p0=p0, acquired=acquired, burst_only=burst_only)
+
+
+def rx_locked_reacquire_cfo(samples: torch.Tensor, p0: torch.Tensor,
+                            freq_offset_old: torch.Tensor,
+                            keep: torch.Tensor) -> torch.Tensor:
+    """The re-acquisition's merged (C,) float32 CFO at the grid p0: the
+    grid estimate on one frame interval at p0, refined twice by the
+    feed-forward discriminator; kept channels carry freq_offset_old."""
     seg = _slice_rows(samples, p0, _SPF)
     cfo_new = estimate_cfo_batch(seg).to(torch.float32)
     # seg already starts at the acquired sync, so the refine slice is the
@@ -288,15 +329,30 @@ def rx_locked_reacquire(samples: torch.Tensor, p0_old: torch.Tensor,
     at_seg = torch.zeros_like(p0)
     cfo_new = refine_cfo_locked(seg, at_seg, cfo_new)
     cfo_new = refine_cfo_locked(seg, at_seg, cfo_new)
-    freq_offset = torch.where(keep, freq_offset_old, cfo_new)
-    if frac_old is None:
-        frac_old = torch.zeros(c, dtype=torch.float32, device=samples.device)
-    p0_r, frac_new = refine_timing_from_raw(raw, p0)
-    acquired = ~keep & (found | found_u)
-    p0 = torch.where(acquired, p0_r, p0)
-    frac = torch.where(acquired, frac_new, frac_old.to(torch.float32))
+    return torch.where(keep, freq_offset_old, cfo_new)
+
+
+def rx_locked_reacquire_strided(samples: torch.Tensor, p0_old: torch.Tensor,
+                                freq_offset_old: torch.Tensor,
+                                keep: torch.Tensor, n_frames: int,
+                                frac_old: torch.Tensor, stride: int = 2):
+    """rx_locked_reacquire with the hunt at sample stride `stride`: the
+    strided hunt, the CFO at the hunt's grid, refine_timing_locked at that
+    CFO (full resolution: a strided fold would halve the sub-sample
+    estimate's resolution), then the steady body at the refined grid for
+    the newly acquired channels (kept ones keep p0_old and frac_old).  The
+    JAX package runs these four steps as four device programs; the result
+    is the same dict as rx_locked_reacquire's, burst_only from the hunt."""
+    h = rx_locked_hunt_strided(samples, p0_old, freq_offset_old, keep, stride)
+    freq_offset = rx_locked_reacquire_cfo(samples, h["p0"], freq_offset_old,
+                                          keep)
+    p0_r, frac_r, _ = refine_timing_locked(samples, h["p0"], freq_offset,
+                                           n_frames)
+    acquired = h["acquired"]
+    p0 = torch.where(acquired, p0_r, h["p0"])
+    frac = torch.where(acquired, frac_r, frac_old.to(torch.float32))
     out = _locked_body(samples, p0, freq_offset, n_frames, frac=frac)
-    out["burst_only"] = burst_only
+    out["burst_only"] = h["burst_only"]
     return out
 
 

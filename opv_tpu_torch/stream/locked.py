@@ -1,5 +1,5 @@
-"""Locked-grid streaming engine, synchronous: the production multichannel
-receiver of the port.
+"""Locked-grid streaming engine: the production multichannel receiver of
+the port.
 
 Wraps rx_locked_reacquire / rx_locked_steady / rx_locked_retime
 (rx/locked.py) in a stateful block-streaming class with the reference's
@@ -30,11 +30,21 @@ from the rows only on the re-acquire and retime paths.
 
 The device programs of the JAX package's engine (opv_tpu/stream/locked.py)
 are plain torch functions here, on the engine's device; the host
-lifecycle is the same numpy code.  This module ports the synchronous
-engine: pipeline, eager, hunt_stride > 1 and int8 AGC (ROADMAP queue 1,
-item 7c), mesh (item 12) and the external fused ingest of the wideband
-receiver (item 9) are not ported, and asking for them raises
-NotImplementedError.
+lifecycle is the same numpy code.  pipeline=True launches block N before
+block N-1's results are resolved (its fetch overlaps block N on the card)
+and relaunches N when the resolve proves the predicted program wrong, so
+float buffers emit the synchronous engine's tuples; eager=True serves
+pure-steady blocks as soon as their owned slots are buffered; int8
+buffers adapt their step per channel (AGC); hunt_stride=2 hunts at half
+the dense resolution.  mesh (ROADMAP queue 1, item 12) and the external
+fused ingest of the wideband receiver (item 9) are not ported; mesh
+raises NotImplementedError.
+
+On a CUDA device every block's outputs are copied to pinned host memory
+right behind its launch, and the host waits on an event recorded after
+those copies, never on the whole device; host arrays reach the card
+through pinned staging without blocking (_to_device).  So a launch never
+waits for the work queued before it.
 """
 
 from __future__ import annotations
@@ -47,12 +57,47 @@ import torch.nn.functional as F
 
 from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.rx.locked import (INT8_SCALE, fold_est_np,
-                                     rx_locked_reacquire, rx_locked_retime,
-                                     rx_locked_steady)
+                                     rx_locked_reacquire,
+                                     rx_locked_reacquire_strided,
+                                     rx_locked_retime, rx_locked_steady)
 from opv_tpu_torch.stream.state import to_host
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
+
+#: the block outputs the host lifecycle reads (_emit)
+_FETCHED = ("frames", "metrics", "sync_q", "sync_raw", "decode_ok", "p0",
+            "freq_offset", "frac", "burst_only")
+
+
+class _Fetch:
+    """A block's outputs on the device (`dev`) and their host copies.
+
+    On a CUDA device the copies are queued on the stream right behind the
+    block's launch, non-blocking into pinned host tensors, with an event
+    recorded after them: waiting for this block never waits for a block
+    queued after it.  (The caching host allocator reuses a freed pinned
+    block once its copy has run, so steady streaming allocates no new
+    pinned memory.)  On the CPU the copies are taken when asked for."""
+
+    def __init__(self, dev: dict):
+        self.dev = dev
+        self._host = {k: dev[k] for k in _FETCHED if k in dev}
+        self._event = None
+        first = self._host["p0"]
+        if first.is_cuda:
+            for k, t in self._host.items():
+                pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self._host[k] = pinned.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(first.device))
+
+    def wait(self) -> dict:
+        """The outputs the lifecycle reads, as host numpy arrays."""
+        if self._event is None:
+            return {k: to_host(v) for k, v in self._host.items()}
+        self._event.synchronize()
+        return {k: v.numpy() for k, v in self._host.items()}
 
 
 class LockedStreamDemodulator:
@@ -82,6 +127,17 @@ class LockedStreamDemodulator:
     #: ... if its Viterbi metric EMA says it is near the FEC waterfall
     _WARM_METRIC_MIN = 100.0
 
+    #: int8 AGC: re-evaluate the per-channel quantization step every this
+    #: many resolved blocks (and on every lock transition)
+    _AGC_BLOCKS = 8
+    #: target step: clip at ~3.5 sigma of the input unless the true peak is
+    #: smaller (a clean constant-envelope signal: the step follows the peak,
+    #: and a wire-full-scale signal gets INT8_SCALE exactly)
+    _AGC_SIGMA = 3.5
+    #: hysteresis: re-quantize only when the desired step left [1/1.4, 1.4]
+    #: times the current one (steady streams never rescale)
+    _AGC_BAND = 1.4
+
     def __init__(self, channels: int, block_frames: int = 4,
                  dtype: str = "auto", pipeline: bool = False,
                  agc: bool = True, mesh=None,
@@ -89,14 +145,43 @@ class LockedStreamDemodulator:
                  eager: bool = False, hunt_stride: int = 1,
                  device="cuda"):
         """dtype: the window-row buffer's element type, "float32",
-        "bfloat16" or "int8" (samples / INT8_SCALE, rounded half to even
-        and clipped to +-127: the wire's full scale maps to +-127).  "auto"
-        means float32 in the port until the buffer dtype for CUDA is
-        decided (ROADMAP queue 2).
+        "bfloat16" or "int8" (samples / step, rounded half to even and
+        clipped to +-127).  "auto" means float32 in the port until the
+        buffer dtype for CUDA is decided (ROADMAP queue 2).
 
-        agc: int8 buffers only.  The port has no AGC yet (item 7c), so an
-        int8 engine needs agc=False and quantizes at the fixed INT8_SCALE
-        step (or the per-channel step of a loaded checkpoint).
+        agc (int8 buffers only): adapt the quantization step per channel to
+        the measured input level, step = min(peak, 3.5 x rms) / 127, from
+        feed-time statistics: once on the first feed (before anything is
+        quantized), then every _AGC_BLOCKS resolved blocks and on every
+        lock transition, adopted outside the _AGC_BAND hysteresis.  An
+        adoption re-quantizes the buffered window, round(buf x old/new),
+        into a new tensor.  agc=False keeps the fixed INT8_SCALE step (or
+        the per-channel step of a loaded checkpoint).
+
+        pipeline: launch block N with the last resolved state before block
+        N-1's results are resolved (p0, freq_offset and frac chain on the
+        device from N-1's outputs), so N-1's fetch and host lifecycle
+        overlap block N on the card.  Where the resolve shows the launch was
+        wrong (a lock changed, or a timing refresh is due), block N is
+        launched again on its retained window with the exact state, so
+        float buffers emit the synchronous engine's tuples.  With int8 AGC
+        the level statistics then span one more feed at each adoption
+        point than the synchronous engine's, as in the JAX package.
+        state_tree() raises while a block is in flight (flush() first).
+
+        eager (low-latency serving, block_frames <= sync_miss_limit): a
+        pure-steady block (all channels locked, no flywheel miss, no
+        refresh due) is processed as soon as every owned slot's samples
+        are buffered (count >= max(p0) + advance + one symbol) instead of at
+        window completion; a slot's outputs depend only on samples before
+        pos + spf + 40, so the tuples are the same, one window tail earlier.
+        With int8 AGC the updates then read other feeds' statistics, so
+        payloads and positions stay and other tuple fields may not (as in
+        the JAX package).  Larger blocks keep the window gate.  Exclusive
+        with pipeline.
+
+        hunt_stride: the re-acquisition's dense hunt stride in samples
+        (rx_locked_reacquire_strided for 2, 4, ...; it must divide 40).
 
         device: where the buffer lives and every program runs; "cuda"
         runs the hand-written kernels (and raises without a card), "cpu"
@@ -107,26 +192,21 @@ class LockedStreamDemodulator:
         the false-lock flywheel cost); off, such bursts are dropped.
 
         timing: record per block the program tag, the time spent waiting
-        on the device result (device_wait_ms: one synchronize and the copy
-        of every result to the host) and the host lifecycle time (host_ms)
-        in block_stats; stats() aggregates them.
+        on the block's results (device_wait_ms: in pipeline mode the wait
+        left after the overlap) and the host lifecycle time (host_ms) in
+        block_stats; stats() aggregates them.
 
-        pipeline, eager, hunt_stride > 1, int8 with agc=True and mesh are
-        not ported and raise NotImplementedError."""
-        if pipeline:
-            raise NotImplementedError(
-                "pipeline=True is not ported yet (ROADMAP queue 1, item 7c)")
-        if eager:
-            raise NotImplementedError(
-                "eager=True is not ported yet (ROADMAP queue 1, item 7c)")
-        if hunt_stride != 1:
-            raise NotImplementedError(
-                "hunt_stride > 1 is not ported yet (ROADMAP queue 1, "
-                "item 7c)")
+        mesh is not ported and raises NotImplementedError."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (channel-sharded engine) is not ported yet (ROADMAP "
                 "queue 1, item 12)")
+        if hunt_stride > 1 and CONFIG.samples_per_symbol % hunt_stride:
+            raise ValueError(f"hunt_stride {hunt_stride} must divide the "
+                             f"{CONFIG.samples_per_symbol}-sample symbol")
+        if eager and pipeline:
+            raise ValueError("eager (low-latency) and pipeline (throughput) "
+                             "modes are mutually exclusive")
         if dtype == "auto":
             dtype = "float32"
         if dtype not in _DTYPES:
@@ -134,10 +214,6 @@ class LockedStreamDemodulator:
                              f"'auto', got {dtype!r}")
         self.dtype = _DTYPES[dtype]
         self._int8 = self.dtype == torch.int8
-        if self._int8 and agc:
-            raise NotImplementedError(
-                "int8 AGC is not ported yet (ROADMAP queue 1, item 7c); "
-                "pass agc=False for the fixed INT8_SCALE step")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -149,6 +225,7 @@ class LockedStreamDemodulator:
 
         self.channels = channels
         self.block_frames = block_frames
+        self.hunt_stride = hunt_stride
         spf = CONFIG.samples_per_frame
         self.spf = spf
         self.advance = block_frames * spf
@@ -188,26 +265,46 @@ class LockedStreamDemodulator:
         self.perfect = 0
         self.reacquisitions = 0          # blocks that ran the re-acquire path
 
-        # per-channel quantization step (int8 buffers; device + host mirror)
+        # int8 AGC: per-channel quantization step (wire units per int8 LSB;
+        # device + host mirror) and the feed-time level statistics (on the
+        # device; copied to the host only for an AGC update)
+        self._agc = bool(agc) and self._int8
         self._scale_np = np.full(channels, INT8_SCALE, np.float32)
         self._scale = self._put(self._scale_np)
+        self._stat_gen = 0               # bumped at every statistics reset
+        self._reset_stats()
+        self._blocks = 0                 # resolved blocks (AGC cadence)
+        self._agc_primed = not self._agc
+
+        self._eager = bool(eager) and block_frames <= CONFIG.sync_miss_limit
+        self.pipeline = bool(pipeline)
+        self._pending = None            # in-flight block (pipeline mode)
         self.timing = bool(timing)
         self.block_stats: list = []
         self._burst_salvage = bool(single_frame_burst)
 
     # -- device programs (plain torch on the engine's device) ------------ #
 
+    def _to_device(self, x: torch.Tensor) -> torch.Tensor:
+        """x on the engine's device.  A host tensor goes to the card
+        through a pinned staging copy, non-blocking: a copy from pageable
+        memory would synchronize the stream and so wait for every block in
+        flight.  The caching host allocator keeps the staging memory until
+        its copy has run."""
+        if self.device.type != "cuda" or x.is_cuda:
+            return x.to(self.device)
+        staged = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return staged.copy_(x).to(self.device, non_blocking=True)
+
     def _put(self, arr) -> torch.Tensor:
         """A device copy of a host array (never a view of it)."""
-        return torch.tensor(np.asarray(arr), device=self.device)
+        return self._to_device(torch.tensor(np.asarray(arr)))
 
     def _get(self, out):
-        """Fetch one result (a dict or tuple of tensors) to the host: one
-        synchronize, then the copies."""
+        """Fetch a tuple of tensors to the host now: one synchronize, then
+        the copies (block results go through _Fetch instead)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        if isinstance(out, dict):
-            return {k: to_host(v) for k, v in out.items()}
         return tuple(to_host(v) for v in out)
 
     def _zeros(self) -> torch.Tensor:
@@ -263,12 +360,66 @@ class LockedStreamDemodulator:
                                 frac=frac)
 
     def _reacquire(self, buf, p0, foff, keep, scale, frac):
-        return rx_locked_reacquire(self._cplx(buf, scale), p0, foff, keep,
-                                   self.block_frames, frac_old=frac)
+        x = self._cplx(buf, scale)
+        if self.hunt_stride > 1:
+            # the strided hunt's body decodes the rebuilt complex samples,
+            # so an int8 engine's re-acquire block runs float32 K3
+            return rx_locked_reacquire_strided(x, p0, foff, keep,
+                                               self.block_frames, frac,
+                                               self.hunt_stride)
+        return rx_locked_reacquire(x, p0, foff, keep, self.block_frames,
+                                   frac_old=frac)
 
     def _retime(self, buf, p0, foff, scale):
         return rx_locked_retime(self._cplx(buf, scale), p0, foff,
                                 n_frames=self.block_frames)
+
+    # int8 AGC: level statistics and the step change
+
+    def _stat_p(self, ss, mx, x):        # (C, t, 2) pairs
+        xf = x.to(torch.float32)
+        return (ss + (xf * xf).sum(dim=(1, 2)),
+                torch.maximum(mx, xf.abs().amax(dim=(1, 2))))
+
+    def _stat_c(self, ss, mx, x):        # (C, t) complex
+        r = x.real.to(torch.float32)
+        i = x.imag.to(torch.float32)
+        return (ss + (r * r + i * i).sum(dim=1),
+                torch.maximum(mx, torch.maximum(r.abs().amax(dim=1),
+                                                i.abs().amax(dim=1))))
+
+    @staticmethod
+    def _requant(buf, factor):
+        """int8 rows at a new step: round(buf x old/new), half to even,
+        clipped to +-127, as a new tensor (a retained window is never
+        written)."""
+        q = torch.round(buf.to(torch.float32) * factor[:, None, None])
+        return torch.clamp(q, -127, 127).to(torch.int8)
+
+    def _reset_stats(self):
+        self._stat_ss = self._put(np.zeros(self.channels, np.float32))
+        self._stat_max = self._put(np.zeros(self.channels, np.float32))
+        self._stat_cnt = 0               # components accumulated (host)
+        self._stat_gen += 1
+        self._stat_snap = None
+
+    def _snap_stats(self):
+        """Queue copies of the level statistics to the host ahead of a
+        block launch (CUDA, AGC only), tagged with what they hold (reset
+        generation, components): an AGC update in that block's resolve
+        reads them behind their own event instead of waiting for the
+        block.  This is the JAX engine's fetch of the statistics with the
+        block's results, taken before the block instead of after it."""
+        key = (self._stat_gen, self._stat_cnt)
+        if (not self._agc or self.device.type != "cuda"
+                or (self._stat_snap is not None
+                    and self._stat_snap[0] == key)):
+            return
+        host = [torch.empty(self.channels, pin_memory=True).copy_(
+            t, non_blocking=True) for t in (self._stat_ss, self._stat_max)]
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._stat_snap = (key, host, event)
 
     # ------------------------------------------------------------------ #
 
@@ -278,13 +429,13 @@ class LockedStreamDemodulator:
         dtype during the append); numpy or tensor, copied to the engine's
         device.  Any n is accepted; appends are row-aligned (40 samples),
         so a sub-row tail pends until the next feed/flush.  Returns decoded
-        frame tuples for every full window completed by this feed."""
+        frame tuples for every full window completed by this feed (and, in
+        eager mode, for every block whose owned slots it completed)."""
         if samples.shape[0] != self.channels:
             raise ValueError(f"expected {self.channels} channels")
         ilv = samples.ndim == 3
         x = torch.as_tensor(samples)
-        x = (x.to(self.device) if ilv
-             else x.to(self.device, torch.complex64))
+        x = self._to_device(x if ilv else x.to(torch.complex64))
         if self._pend is not None:
             # sub-row carry from the previous feed: unify in the pairs
             # domain (rare — only non-40-aligned feeds reach here)
@@ -294,6 +445,21 @@ class LockedStreamDemodulator:
                 x = x.to(self._pend.dtype)
             x = torch.cat([self._pend, x], dim=1)
             self._pend = None
+        if self._agc and x.shape[1]:
+            # per-channel level statistics on the device (a sub-row tail is
+            # counted on the feed it arrives with; its re-count when it is
+            # prepended above is noise at AGC scale)
+            acc = self._stat_p if ilv else self._stat_c
+            self._stat_ss, self._stat_max = acc(self._stat_ss,
+                                                self._stat_max, x)
+            self._stat_cnt += 2 * x.shape[1]
+            if not self._agc_primed:
+                # first feed: adopt the measured step before anything is
+                # quantized (one synchronous fetch at stream start), so a
+                # weak or deep-low-SNR stream never writes its first window
+                # at the wrong step
+                self._agc_primed = True
+                self._agc_update(force=True)
         out = []
         off = 0
         n = x.shape[1]
@@ -315,11 +481,15 @@ class LockedStreamDemodulator:
             tail = x[:, off:] if ilv else self._pairs_c(x[:, off:])
             # a copy: on the CPU the feed may be a view of the caller's array
             self._pend = tail.to(self._wire, copy=True)
+        out.extend(self._eager_poll())
         return out
 
     def flush(self):
         """Process the buffered tail (zero-padded); frames whose payload
-        would extend into the padding are rejected, not emitted corrupt."""
+        would extend into the padding are rejected, not emitted corrupt.
+        Pipeline mode first drains the block in flight (its results come
+        before the tail's)."""
+        drained = self._resolve_pending() if self.pipeline else []
         if self._pend is not None:       # zero-pad the sub-row carry in
             p = self._pend.shape[1]
             self._append(F.pad(self._pend, (0, 0, 0, self.sps - p)))
@@ -333,17 +503,37 @@ class LockedStreamDemodulator:
         self._abs_base += self._count
         self._count = 0
         self._buf = self._zeros()
-        return results
+        return drained + results
 
     # ------------------------------------------------------------------ #
 
-    def _process(self, valid_limit: int | None = None):
+    def _process(self, valid_limit: int | None = None, eager: bool = False):
+        if self.pipeline and valid_limit is None:
+            return self._process_pipelined()
         out, wrap, p0w, tag = self._run_block(self._buf)
         results = self._resolve_block(out, self._buf, valid_limit, wrap,
-                                      p0w, tag, self._abs_base)
-        if valid_limit is None:
+                                      p0w, tag, self._abs_base,
+                                      own_end=self.advance if eager
+                                      else None)
+        if valid_limit is None or eager:
             self._advance_window()
         return results
+
+    def _eager_poll(self):
+        """Eager mode: process pure-steady blocks as soon as their owned
+        slots' samples are buffered (see __init__).  Called after every
+        feed; returns the frames emitted early."""
+        out = []
+        while (self._eager and self._count < self.window
+               and self._agc_primed and self.locked.size
+               and self.locked.all() and (self.miss == 0).all()
+               and not self.refresh.any()):
+            need = int(self.p0.max()) + self.advance + self.sps
+            need = -(-need // self.sps) * self.sps        # row-aligned
+            if self._count < need:
+                break
+            out.extend(self._process(valid_limit=self._count, eager=True))
+        return out
 
     def _run_block(self, buf):
         """Retime (if flagged) and launch this window's program with the
@@ -457,6 +647,7 @@ class LockedStreamDemodulator:
                                  self.frac).astype(np.float32)
         self.refresh[:] = False
 
+        self._snap_stats()
         if self.locked.all():
             n_frames = self.block_frames + (1 if wrap.any() else 0)
             out = self._steady(buf, put("p0", self.p0),
@@ -472,18 +663,22 @@ class LockedStreamDemodulator:
                                   put("keep", self.locked), self._scale,
                                   put("frac", self.frac))
             tag = "reacquire"
-        return out, wrap, p0_wrapped, tag
+        return _Fetch(out), wrap, p0_wrapped, tag
 
     def _resolve_block(self, out, buf, valid_limit, wrap, p0_wrapped, tag,
-                       base):
-        """Fetch one block's results and run the host sync lifecycle."""
+                       base, own_end=None):
+        """Wait for one block's results (a _Fetch) and run the host sync
+        lifecycle.  own_end: block-ownership end override (an eager
+        partial-window block owns the normal advance span while
+        valid_limit marks the filled extent)."""
         t_res = time.monotonic() if self.timing else None
         self._fetch_ms = 0.0
         if tag == "reacquire":
             self.reacquisitions += 1
         self._want_refresh[:] = False
         prev_locked = self.locked.copy()
-        results = self._emit(out, valid_limit, base, own_extra=wrap)
+        results = self._emit(out, valid_limit, base, own_extra=wrap,
+                             own_end=own_end)
         self.p0 = np.where(wrap, p0_wrapped, self.p0).astype(np.int32)
 
         # a channel that dropped lock during this block is re-hunted over
@@ -493,13 +688,15 @@ class LockedStreamDemodulator:
         dropped = prev_locked & ~self.locked
         if dropped.any():
             self.reacquisitions += 1
+            self._snap_stats()
             out2 = self._reacquire(buf, self._put_state("p0", self.p0),
                                    self._put_state("foff", self.freq_offset),
                                    self._put_state("keep", ~dropped),
                                    self._scale,
                                    self._put_state("frac", self.frac))
-            results.extend(self._emit(out2, valid_limit, base, only=dropped,
-                                      min_pos=self._dropped_at))
+            results.extend(self._emit(_Fetch(out2), valid_limit, base,
+                                      only=dropped, min_pos=self._dropped_at,
+                                      own_end=own_end))
         warm = max(4.0, self._FOLD_WARM_FOLDS / self.block_frames)
         with np.errstate(invalid="ignore"):
             warming = ((self._fold_w < warm)
@@ -515,6 +712,16 @@ class LockedStreamDemodulator:
         self._fold_ok &= stable
         self._fold_w[~stable] = 0.0
         self._big_dir[~stable] = 0
+        self._blocks += 1
+        # AGC cadence, plus every lock transition: a lock loss is often a
+        # level change (a burst on a quiet channel, a fade), and the re-hunt
+        # succeeds only once the window is quantized at the new step.  The
+        # transition, not the unlocked state, triggers it, so a bank with
+        # idle channels still updates at the cadence only.
+        if self._agc and (self._blocks % self._AGC_BLOCKS == 0
+                          or dropped.any()
+                          or (~prev_locked & self.locked).any()):
+            self._agc_update()
         if t_res is not None:
             total_ms = (time.monotonic() - t_res) * 1e3
             self.block_stats.append(dict(
@@ -537,6 +744,8 @@ class LockedStreamDemodulator:
         return dev
 
     def _advance_window(self):
+        # the slide builds a new buffer, so a window retained by a block in
+        # flight (pipeline mode) is never written
         self._slide()
         self._count -= self.advance
         self._abs_base += self.advance
@@ -544,18 +753,127 @@ class LockedStreamDemodulator:
         # frame multiple the same sync sits at p0 mod 86,720
         self.p0 = self.p0 % self.spf
 
+    def _agc_update(self, force: bool = False):
+        """Re-evaluate the int8 step from the level statistics; adopt per
+        channel where the desired step left the hysteresis band, and
+        re-quantize the buffered window so its rows and the next share one
+        step.  force=True (first feed) adopts any change: the first window
+        must be written at the measured step, not the wire-full-scale
+        default."""
+        if not self._agc or self._stat_cnt == 0:
+            return
+        # the statistics copied ahead of the last launch, if nothing was
+        # fed or reset since; else one synchronous fetch of both vectors
+        snap = self._stat_snap
+        if snap is not None and snap[0] == (self._stat_gen, self._stat_cnt):
+            snap[2].synchronize()
+            ss, mx = (h.numpy() for h in snap[1])
+        else:
+            ss, mx = self._get((self._stat_ss, self._stat_max))
+        rms = np.sqrt(ss / self._stat_cnt)
+        desired = np.minimum(mx, self._AGC_SIGMA * rms) * (1.0 / 127.0)
+        desired = np.maximum(desired, 1e-6).astype(np.float32)  # silence
+        ratio = desired / self._scale_np
+        adopt = (ratio > self._AGC_BAND) | (ratio < 1.0 / self._AGC_BAND)
+        if force:
+            adopt = adopt | (ratio != 1.0)
+        if adopt.any():
+            new = np.where(adopt, desired, self._scale_np).astype(np.float32)
+            if self._count:              # re-quantize the buffered window
+                factor = (self._scale_np / new).astype(np.float32)
+                self._buf = self._requant(self._buf, self._put(factor))
+            self._scale_np = new
+            self._scale = self._put(new)
+        self._reset_stats()
+
+    def _process_pipelined(self):
+        """One full window in pipeline mode: launch this block with the
+        last resolved state (predicted), then resolve the previous block,
+        whose fetch and lifecycle overlap this block on the card.  A wrong
+        prediction (a lock change, or a timing refresh due) launches this
+        block again on its retained window with the exact state."""
+        if self._pending is None:
+            # first window: the host state is exact, launch directly
+            out, wrap, p0w, tag = self._run_block(self._buf)
+            self._pending = dict(out=out, buf=self._buf, wrap=wrap, p0w=p0w,
+                                 tag=tag, base=self._abs_base)
+            self._advance_window()
+            return []
+
+        prev = self._pending
+        pred_locked = self.locked.copy()
+        retune_pred = self.refresh & self.locked
+        launched = None
+        if not retune_pred.any():
+            launched = self._launch_predicted(prev, pred_locked)
+        # resolve the previous block (its fetch overlaps the launched block)
+        results = self._resolve_block(prev["out"], prev["buf"], None,
+                                      prev["wrap"], prev["p0w"], prev["tag"],
+                                      prev["base"])
+        self.p0 = self.p0 % self.spf     # previous -> current window coords
+        retune_actual = self.refresh & self.locked
+        if (launched is None or retune_actual.any()
+                or not np.array_equal(self.locked, pred_locked)):
+            # prediction invalid: launch this window again with exact state
+            launched = self._run_block(self._buf)
+        out, wrap, p0w, tag = launched
+        self._pending = dict(out=out, buf=self._buf, wrap=wrap, p0w=p0w,
+                             tag=tag, base=self._abs_base)
+        self._advance_window()
+        return results
+
+    def _launch_predicted(self, prev, pred_locked):
+        """Launch the current window's program on the predicted state:
+        p0, freq_offset and frac chain on the device from the previous
+        block's unfetched outputs (a wrap block's wrapped channels take the
+        host-computed p0_wrapped), the program from the last resolved lock
+        state.  Queues work only: nothing here waits for the device."""
+        dev = prev["out"].dev
+        p0_dev = dev["p0"]
+        if prev["wrap"].any():
+            p0_dev = torch.where(self._put(prev["wrap"]),
+                                 self._put(prev["p0w"]), p0_dev)
+        p0_dev = p0_dev % self.spf
+        foff_dev, frac_dev = dev["freq_offset"], dev["frac"]
+        self._snap_stats()
+        if pred_locked.all():
+            o = self._steady(self._buf, p0_dev, foff_dev, self._scale,
+                             frac_dev, self.block_frames)
+            tag = "steady"
+        else:
+            o = self._reacquire(self._buf, p0_dev, foff_dev,
+                                self._put(pred_locked), self._scale,
+                                frac_dev)
+            tag = "reacquire"
+        return _Fetch(o), np.zeros(self.channels, bool), self.p0, tag
+
+    def _resolve_pending(self):
+        """Drain the block in flight (pipeline mode): resolve it and return
+        its tuples.  Afterwards the host state is the synchronous engine's."""
+        if self._pending is None:
+            return []
+        prev, self._pending = self._pending, None
+        results = self._resolve_block(prev["out"], prev["buf"], None,
+                                      prev["wrap"], prev["p0w"], prev["tag"],
+                                      prev["base"])
+        self.p0 = self.p0 % self.spf
+        return results
+
     def _emit(self, out, valid_limit, base, only=None, min_pos=None,
-              own_extra=None):
-        """Run the host-side sync lifecycle over one block result.
+              own_extra=None, own_end=None):
+        """Run the host-side sync lifecycle over one block result (a
+        _Fetch).
 
         only: bool (C,) — process just these channels (re-hunt second pass).
         min_pos: int (C,) — reject frames before this window position (the
         slot where lock was dropped).
         own_extra: bool (C,) — extend this channel's block ownership by one
         frame (drift-wrap straddler, see _run_block).
-        base: absolute stream index of this block's window start."""
+        base: absolute stream index of this block's window start.
+        own_end: where this block's ownership ends (default: the advance,
+        or the valid limit of a flushed tail)."""
         t_fetch = time.monotonic() if self.timing else None
-        out = self._get(out)             # one fetch for the whole result
+        out = out.wait()
         if t_fetch is not None:
             self._fetch_ms += (time.monotonic() - t_fetch) * 1e3
         burst_only = out.get("burst_only")   # reacquire blocks only
@@ -577,7 +895,8 @@ class LockedStreamDemodulator:
         vlim = self.window if valid_limit is None else valid_limit
         # a frame is owned by this block only if its sync starts before the
         # slide amount; later slots reappear (at pos % spf) next block
-        own_end = self.advance if valid_limit is None else vlim
+        if own_end is None:
+            own_end = self.advance if valid_limit is None else vlim
         extent = self.spf + CONFIG.samples_per_symbol  # sync..payload end
         results = []
         n_slots = frames.shape[1]
@@ -665,7 +984,12 @@ class LockedStreamDemodulator:
     def state_tree(self) -> dict:
         """The engine's whole state as a flat dict (the JAX package's keys
         and layouts): buf and pend are tensors on the device (copies), the
-        rest numpy."""
+        rest numpy.  Raises while a pipelined block is in flight."""
+        if self._pending is not None:
+            raise RuntimeError(
+                "pipelined stream has a block in flight; checkpoint at a "
+                "flush boundary (call flush() first) or use the synchronous "
+                "engine for checkpointed streams")
         # pend is stored zero-padded to one full row + its true length so
         # the leaf shapes are feed-history independent; it lives at WIRE
         # scale (float32 for int8 buffers)
@@ -765,3 +1089,8 @@ class LockedStreamDemodulator:
             self._fold_w[:] = 0.0
         self.decoded = int(tree["decoded"])
         self.perfect = int(tree["perfect"])
+        # the restored step is authoritative: no priming off the next feed,
+        # and the statistics start afresh
+        if self._agc:
+            self._agc_primed = True
+            self._reset_stats()

@@ -15,8 +15,9 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from chip_smoke import (impaired_feed, stream_twin_checks,  # noqa: E402
-                        viterbi_inputs)
+from chip_smoke import (MODES_WEAK_GAIN, hold_stream_kernels,  # noqa: E402
+                        impaired_feed, same_stream, serve_eager, spy_kernels,
+                        stream_twin_checks, viterbi_inputs)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
 from opv_tpu_torch.ops import registry  # noqa: E402
@@ -24,6 +25,7 @@ from opv_tpu_torch.ops import symbol_soft as ss  # noqa: E402
 from opv_tpu_torch.ops import viterbi as vit  # noqa: E402
 from opv_tpu_torch.rx.locked import (rx_locked, rx_locked_steady,  # noqa: E402
                                      soft_stage_operands, to_window_rows)
+from opv_tpu_torch.stream import LockedStreamDemodulator  # noqa: E402
 from opv_tpu_torch.tx.modulator import (iq_int16_to_complex, modulate_frames,  # noqa: E402
                                         tx_flush_zeros)
 
@@ -260,3 +262,66 @@ def test_stream_engine_and_reacquire_on_card_match_cpu_twins(cuda_dev):
     p0 = out["reacquire_p0"]                  # channels 0 and 2 kept
     assert p0[0] == grid[0] and p0[2] == grid[2] and abs(p0[1] - grid[1]) <= 1
     assert out["tuples"]["float32"] > 0
+
+
+def _windowed(sd, feed):
+    """chip_smoke.drive_stream's feeding: one window, then advance-sized
+    chunks (each completes one block), then flush()."""
+    out = sd.feed(feed[:, :sd.window])
+    for off in range(sd.window, feed.shape[1], sd.advance):
+        out += sd.feed(feed[:, off:off + sd.advance])
+    return out + sd.flush()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_pipelined_engine_on_card_equals_synchronous(cuda_dev, dtype):
+    """The pipelined engine on the card (event-gated fetches, pinned
+    staging) emits the synchronous card engine's tuples on the 4-channel
+    impaired feed, and matches the pipelined CPU engine.  int8 runs with
+    AGC, fed as chip_smoke.py feeds: fed otherwise, an AGC update can read
+    other statistics in the two engines (ROADMAP queue 3)."""
+    x, _ = _signal(20, (0, 488, 976))
+    feed, _ = impaired_feed(x.to(cuda_dev), cuda_dev)
+    runs = []
+    for pipe, dev in ((True, cuda_dev), (False, cuda_dev),
+                      (True, torch.device("cpu"))):
+        sd = LockedStreamDemodulator(4, block_frames=4, dtype=dtype,
+                                     pipeline=pipe, device=dev)
+        runs.append((_windowed(sd, feed.to(dev)), sd.reacquisitions))
+    same_stream(runs[0][0], runs[1][0], "pipelined vs synchronous, card")
+    same_stream(runs[0][0], runs[2][0], "pipelined card vs cpu")
+    assert runs[0][1] == runs[1][1] == runs[2][1] >= 2
+
+
+def test_int8_agc_soft_kernel_takes_per_channel_steps(cuda_dev):
+    """An int8 AGC engine with a weak channel: its first steady K3 call,
+    with the per-channel rescale scale/127, held against the twin on the
+    engine's own operands (and the re-acquire block's float32 call)."""
+    x, frames = _signal(12, (0, 488, 976))
+    x[2] *= MODES_WEAK_GAIN
+    sd = LockedStreamDemodulator(3, block_frames=4, dtype="int8",
+                                 device=cuda_dev)
+    held, remove = spy_kernels(sd)
+    try:
+        out = _windowed(sd, x.to(cuda_dev))
+    finally:
+        remove()
+    assert sd._scale_np[2] < 1.0 < sd._scale_np[0]
+    resc = held[("steady", "soft")][2]
+    assert torch.allclose(resc.cpu(), torch.from_numpy(sd._scale_np) / 127.0)
+    hold_stream_kernels(held, "int8 agc")
+    for c in range(3):
+        assert [r[1] for r in out if r[0] == c] == \
+            [bytes(f) for f in frames.numpy()]
+
+
+def test_eager_serving_on_card(cuda_dev):
+    """opv-modem --fast's engine on the card (1 channel, block_frames 1,
+    eager): the window-gated engine's tuples, one frame-sized feed ahead."""
+    x, frames = _signal(8, (0, 123))
+    runs = serve_eager(x.to(cuda_dev), cuda_dev)
+    same_stream(runs[True][0], runs[False][0], "eager vs window-gated")
+    assert [r[1] for r in runs[True][0]] == [bytes(f) for f in frames.numpy()]
+    cb, ce = np.cumsum(runs[False][1]), np.cumsum(runs[True][1])
+    first = int(np.argmax(ce > 0))
+    assert (ce[first:] - cb[first:] == 1).all()

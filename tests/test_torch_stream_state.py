@@ -1,7 +1,8 @@
 """Checkpoints of the port's streaming engine: saved by one package and
 loaded by the other, the stream continues tuple-identical to an
 uninterrupted run; mid-pend, cross-dtype and legacy buffer layouts; and
-the engine's construction and feed contract (device, options not ported).
+the engine's construction and feed contract (device, the modes, invalid
+and unported options).
 
 Tolerance: identical tuple streams — channel, frame bytes, Viterbi metric
 and absolute position equal, sync quality within 1e-4."""
@@ -119,14 +120,45 @@ def test_tensor_and_numpy_feeds_agree():
     assert [r[1] for r in want] == [bytes(f) for f in frames]
 
 
-@pytest.mark.parametrize("kw", [dict(pipeline=True), dict(eager=True),
-                                dict(hunt_stride=2), dict(mesh=object()),
-                                dict(dtype="int8")])
-def test_options_not_ported_raise(kw):
-    """Options of the JAX engine the port does not have yet raise, naming
-    their roadmap item; int8 needs agc=False (the JAX default is AGC on)."""
+def test_options_not_ported_raise():
+    """The channel-sharded engine is not ported: mesh= raises, naming its
+    roadmap item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(2, **kw)
+        _port(2, mesh=object())
+
+
+@pytest.fixture(scope="module")
+def four_frames():
+    """Four frames 311 samples into the stream, (1, N), and the
+    synchronous float32 engine's tuples at block_frames 1."""
+    s, frames = signal(4)
+    x = np.concatenate([np.zeros(311, np.complex64), s])[None]
+    want = run(_port(1, block_frames=1), x, chunk=50_001)
+    assert [r[1] for r in want] == [bytes(f) for f in frames]
+    return x, want
+
+
+@pytest.mark.parametrize("kw", [dict(pipeline=True), dict(eager=True),
+                                dict(hunt_stride=2), dict(dtype="int8")],
+                         ids=["pipeline", "eager", "hunt_stride2", "int8_agc"])
+def test_modes_run(four_frames, kw):
+    """Each mode of the JAX engine constructs with its defaults (int8 with
+    AGC on) and decodes a clean stream as the synchronous float32 engine
+    does."""
+    x, want = four_frames
+    sd = _port(1, block_frames=1, **kw)
+    assert_same_stream(run(sd, x, chunk=50_001), want)
+    if "dtype" in kw:                     # AGC primed on the first feed:
+        assert sd._agc and sd._agc_primed   # a full-scale clean stream
+        assert sd._scale_np[0] == 129.0     # adopts INT8_SCALE exactly
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(eager=True, pipeline=True), "exclusive"),
+    (dict(hunt_stride=3), "divide")])
+def test_invalid_modes_raise(kw, match):
+    with pytest.raises(ValueError, match=match):
+        _port(1, **kw)
 
 
 def test_engine_defaults_to_cuda_and_never_falls_back():
