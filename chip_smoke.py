@@ -62,9 +62,31 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               true frames at the same positions, re-acquire block ms); and
               the pipelined int8 AGC engine on a 4-channel feed with a weak
               channel and a level step, card against CPU twins
-  9. the kernels JSON line (launches: the main path's; launches_stream:
-     the stream phase's two runs; launches_modes: the two pipelined runs
-     of the modes phase), the card line, then the result line
+  9. cli      the port's command-line tools on the card: opv_mod in this
+              process (exact, the default) byte-equal to the reference
+              binary's captures tests/golden/bert3.iq and raw3.iq, its
+              --fast -R output equal to the fast TX on the CPU; the
+              phase_track kernel bit-identical to its twin over bert3, its
+              ms per frame against the twin's and the exact TX per frame;
+              opv_demod -s --fast -r -q --channels 64 in this process on the
+              stream phase's feed as int16 wire bytes (float32 and int8
+              rows, --metrics): on float32 rows every transmitted frame
+              once, byte-exact; on int8 rows the frames its engine emits
+              fed the same reads, and the transmitted frames lost, by
+              channel; the final metrics line counting them, host-clock
+              Msamples/s and its multiple of real time, again with 16 MiB
+              reads (what the 1 MiB framing costs) and the view of the
+              reads alone; opv_demod as a process at 1 channel with no --device
+              (the default reaches the card); and opv_modem as processes:
+              -R --fast delivering bert3's frames over UDP, -l --fast
+              echoing frames sent at 40 ms pacing (echo latency p50/p95
+              after a warm-up), -t -o with stdout equal to the tee and to
+              the exact modulation
+ 10. the kernels JSON line (launches: the main path's, for phase_track the
+     cli phase's opv_mod runs; launches_stream: the stream phase's two
+     runs; launches_modes: the two pipelined runs of the modes phase;
+     launches_cli: the cli phase's in-process runs), the card line, then
+     the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 There is no CPU fallback: without a CUDA device it exits non-zero and
@@ -74,12 +96,18 @@ prints no result.
 from __future__ import annotations
 
 import json
+import pathlib
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+# in-process CLI runs and free ports, shared with the CLI tests
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+from cli_support import free_port, run_main  # noqa: E402
 
 CHANNELS = 64
 FRAMES = 20
@@ -90,7 +118,9 @@ KERNEL_REPS = 20
 #: published H100 SXM peaks (NVIDIA's H100 datasheet): HBM bytes/s, and
 #: operations/s for float32 outside the tensor cores and for int8
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12,
+                  # float64 outside the tensor cores (the same datasheet)
+                  "f64": 34e12}
 #: int32 operations of the Viterbi per trellis state per step: two adds
 #: (each predecessor's path metric plus its branch metric), a compare of
 #: the two candidates and a select of the survivor
@@ -101,6 +131,9 @@ VITERBI_OPS_PER_STEP = 4
 STEADY_REPS = 7
 THROUGHPUT_BLOCKS = 20
 SPF = 86_720                  # samples per frame
+#: the receiver's kernels (phase_track, the exact TX's, runs in phase 9)
+RX_KERNELS = ("viterbi_r4", "viterbi_r2", "symbol_soft[float32]",
+              "symbol_soft[int8]")
 #: the stream phase: the engine at the main path's width, block_frames 4;
 #: channels 0..55 carry the main path's stream, the rest a burst of 6
 #: frames, an 8-frame noise gap (lock lost) and 6 frames at +500 Hz and
@@ -127,6 +160,16 @@ MODES_WEAK = slice(48, 56)
 MODES_WEAK_GAIN = 1.0 / 256.0
 MODES_ALTERNATIONS = 3
 MODES_AGC_BLOCKS = 2
+#: the cli phase: frames echoed by opv_modem -l --fast at a frame's pacing
+#: (warm-up, then timed); timed phase_track calls; seconds a modem process
+#: may take to listen; the larger read of opv_demod's framing check (MiB)
+CLI_ECHO_WARM = 10
+CLI_ECHO_FRAMES = 40
+CLI_PACING_S = 0.040
+CLI_TRACK_REPS = 5
+CLI_START_S = 120
+CLI_BIG_READ = 16
+REAL_TIME_MSPS = 2.168        # one channel's sample rate, Msamples/s
 
 
 def log(msg: str) -> None:
@@ -445,7 +488,7 @@ def phase_main(x, frames, delays, dev, card):
         check(out, what)
     if not torch.equal(p0, want_p0):
         raise AssertionError(f"p0 {p0.tolist()} != delays {delays}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in RX_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
     log(f"[main] {c} ch x {FRAMES} frames, N={n}: rx_locked + 3 steady runs "
@@ -1063,9 +1106,413 @@ def phase_modes(x, frames, delays, dev, card):
                               steps=agc_runs[0][1].tolist()))
 
 
+def wire_bytes(x) -> bytes:
+    """(C, N) complex on the card -> the int16 wire bytes of opv-demod
+    --channels C (I0 Q0 I1 Q1 ... per sample instant), rounded half to
+    even and clipped to int16."""
+    import torch
+    pairs = torch.view_as_real(x.to(torch.complex64))
+    q = torch.clamp(torch.round(pairs), -32768, 32767).to(torch.int16)
+    return q.transpose(0, 1).contiguous().cpu().numpy().tobytes()
+
+
+def repo_root():
+    return pathlib.Path(__file__).resolve().parent
+
+
+def golden(name: str) -> bytes:
+    return (repo_root() / "tests" / "golden" / name).read_bytes()
+
+
+def tx_cpu(frames_u8: np.ndarray, exact: bool = False) -> bytes:
+    """The port's TX of (F, 134) frames on the CPU as one stream, as wire
+    bytes (no flush)."""
+    import torch
+    from opv_tpu_torch.core.framing import encode_frame
+    from opv_tpu_torch.tx.modulator import modulate_frames
+    iq, _ = modulate_frames(encode_frame(torch.tensor(frames_u8)),
+                            exact=exact)
+    return iq.numpy().astype("<i2").tobytes()
+
+
+def cli_mod(dev, card, fp64_ops_per_s: float):
+    """opv_mod in this process on the card, and the phase_track kernel
+    against its twin."""
+    import torch
+    from opv_tpu_torch.cli import opv_mod
+    from opv_tpu_torch.ops import phase_track as pt
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.tx import modulator
+    registry.reset_launch_counts()
+    runs = {"bert3": (["-S", "W5NYV", "-B", "3"], b"", golden("bert3.iq")),
+            "raw3": (["-R"], golden("raw3.bin"), golden("raw3.iq"))}
+    for name, (argv, stdin, want) in runs.items():
+        rc, out, err = run_main(opv_mod.main, argv, stdin)
+        if rc != 0 or out != want:
+            a = np.frombuffer(out[:len(want)], "<i2").reshape(-1, 2)
+            b = np.frombuffer(want[:len(out)], "<i2").reshape(-1, 2)
+            bad = np.nonzero((a != b).any(1))[0]
+            raise AssertionError(
+                f"[cli] opv_mod exact {name} on the card: rc {rc}, "
+                f"{len(out)} bytes against {len(want)}, {len(bad)} samples "
+                f"differ, first {bad[:8].tolist()}: card "
+                f"{a[bad[:4]].tolist()} reference {b[bad[:4]].tolist()}; "
+                f"{err[-500:]}")
+    launches = registry.launch_counts()
+    # one launch for -B 3 (one batch), one per frame for -R
+    if launches["phase_track"] != 1 + 3:
+        raise AssertionError(f"opv_mod exact launched phase_track "
+                             f"{launches['phase_track']} times, want 4")
+    raw3 = np.frombuffer(golden("raw3.bin"), np.uint8).reshape(-1, 134)
+    rc, out, _ = run_main(opv_mod.main, ["-R", "--fast"], golden("raw3.bin"))
+    want = tx_cpu(raw3) + bytes(4000 * 4)
+    if rc != 0 or out != want:
+        raise AssertionError("[cli] opv_mod --fast -R on the card differs "
+                             "from the fast TX on the CPU")
+    # the kernel against its twin over bert3's 260,160 samples
+    n = 3 * SPF
+    incs = (modulator._INC1, modulator._INC2)
+    ph0 = torch.zeros(2, dtype=torch.float64, device=dev)
+    got, got_f = pt.phase_track_cuda(ph0, incs, n)
+    t0 = time.perf_counter()
+    ref, ref_f = pt.phase_track_reference(ph0.cpu(), incs, n)
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(got.cpu(), ref) and torch.equal(got_f.cpu(), ref_f)):
+        bad = torch.nonzero((got.cpu() != ref).any(0))[:8, 0].tolist()
+        raise AssertionError(f"phase_track kernel != twin at samples {bad}")
+    ms = cuda_ms(lambda: pt.phase_track_cuda(ph0, incs, n), CLI_TRACK_REPS)
+    wraps = int((ref.diff(dim=1).abs() > np.pi).sum())
+    nbytes = 2 * 8 + 2 * n * 8 + 2 * 8
+    # per tone and sample: the add and the two wrap compares, plus the
+    # wrap's add where this run's phases wrapped
+    bound_ms, bound_by = bound(nbytes, 2 * n * 3 + wraps, fp64_ops_per_s)
+    # the whole exact TX of bert3's frames, on the card and on the CPU
+    from opv_tpu_torch.core.framing import build_bert_frame, encode_frame
+    enc = encode_frame(torch.from_numpy(build_bert_frame(
+        "W5NYV", frame_num=np.arange(3))))
+    enc_d = enc.to(dev)
+    tx_ms = {}
+    for where, e in (("card", enc_d), ("cpu", enc)):
+        modulator.modulate_frames(e, exact=True)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        modulator.modulate_frames(e, exact=True)
+        torch.cuda.synchronize(dev)
+        tx_ms[where] = (time.perf_counter() - t0) * 1e3 / 3
+    log(f"[cli] opv_mod exact on the card: bert3 and raw3 byte-equal to the "
+        f"reference captures; --fast -R equal to the CPU's fast TX; "
+        f"phase_track launches {launches['phase_track']}")
+    log(f"[cli] phase_track: kernel bit-identical to the twin over {n} "
+        f"samples x 2 tones ({wraps} wraps); kernel {ms:.3f} ms = "
+        f"{ms / 3:.3f} ms per frame, twin {twin_ms:.1f} ms = "
+        f"{twin_ms / 3:.1f} ms per frame (host); bound {bound_ms:.5f} ms "
+        f"({bound_by}); exact TX per 40 ms frame: card {tx_ms['card']:.2f} "
+        f"ms, cpu {tx_ms['cpu']:.1f} ms (host clock; {card})")
+    track_err = max((got.cpu() - ref).abs().max().item(),
+                    (got_f.cpu() - ref_f).abs().max().item())
+    kernel = dict(ms=ms, plain_ms=twin_ms, max_abs_err=track_err,
+                  bound_ms=bound_ms,
+                  bound_by=bound_by, roofline=bound_ms / ms, library_ms=None)
+    return launches, kernel, dict(track_ms_per_frame=ms / 3,
+                                  twin_ms_per_frame=twin_ms / 3,
+                                  exact_tx_ms_per_frame=tx_ms)
+
+
+def engine_on_reads(wire: bytes, c: int, read_bytes: int, dev, buf: str,
+                    f32: bool = False):
+    """The engine opv_demod -s --fast --channels c --buf `buf` --metrics
+    builds, fed the CLI's reads of `wire` outside the CLI: its tuples.
+    f32: each read as float32 pairs (the JAX CLI's framing) instead of the
+    int16 view."""
+    from opv_tpu_torch.io.iq import iq_bytes_to_i16_pairs
+    from opv_tpu_torch.stream import LockedStreamDemodulator
+    sd = LockedStreamDemodulator(channels=c, pipeline=True, dtype=buf,
+                                 block_frames=STREAM_BF, timing=True,
+                                 device=dev)
+    out, carry, quantum = [], b"", 4 * c
+    for off in range(0, len(wire), read_bytes):
+        chunk = carry + wire[off:off + read_bytes]
+        carry = chunk[len(chunk) - len(chunk) % quantum:]
+        pairs = iq_bytes_to_i16_pairs(chunk, channels=c)
+        out += sd.feed(np.ascontiguousarray(pairs, np.float32) if f32
+                       else pairs)
+    return out + sd.flush()
+
+
+def cli_demod(x, frames, delays, dev, card):
+    """opv_demod -s --fast -r -q --channels 64 in this process on the stream
+    phase's feed as wire bytes, float32 and int8 rows.  float32 must emit
+    every transmitted frame of the clean channels once; int8 must emit
+    what its engine emits on the same reads, and the frames it loses are
+    counted (ROADMAP queue 3: AGC primes a channel that is silent on the
+    first read at the 1e-6 floor)."""
+    import torch
+    from opv_tpu_torch.cli import opv_demod
+    from opv_tpu_torch.ops import registry
+    feed, want = stream_feed(x, frames, delays, dev)
+    c, n = feed.shape
+    wire = wire_bytes(feed)
+    del feed
+    want = [Counter(bytes(f.cpu().numpy()) for f, _ in chan) for chan in want]
+    expect = sum(want, Counter())
+    n_want = sum(expect.values())
+    metrics_dir = pathlib.Path("build/chip_smoke")
+    metrics_dir.mkdir(parents=True, exist_ok=True)
+    runs, launches = {}, {}
+    read_bytes = opv_demod.READ_BYTES
+    # the CLI's 1 MiB reads on both row types, then float32 with reads
+    # CLI_BIG_READ times larger: what the framing costs (not counted)
+    for buf, scale in (("float32", 1), ("int8", 1), ("float32", CLI_BIG_READ)):
+        name = buf if scale == 1 else f"{buf}, {scale} MiB reads"
+        path = metrics_dir / f"cli_metrics_{buf}_{scale}.jsonl"
+        registry.reset_launch_counts()
+        opv_demod.READ_BYTES = read_bytes * scale
+        t0 = time.perf_counter()
+        try:
+            rc, out, err = run_main(opv_demod.main, [
+                "-s", "--fast", "-r", "-q", "--channels", str(c), "--buf",
+                buf, "--metrics", str(path)], wire)
+            torch.cuda.synchronize(dev)
+        finally:
+            opv_demod.READ_BYTES = read_bytes
+        dt = time.perf_counter() - t0
+        counts = registry.launch_counts()
+        if scale == 1:
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        got = Counter(out[i:i + 134] for i in range(0, len(out), 134))
+        extra = sum(k for b, k in got.items() if b not in expect)
+        lines = [json.loads(line) for line in path.read_text().splitlines()]
+        final = lines[-1]
+        if rc != 0 or len(out) % 134:
+            raise AssertionError(f"[cli] opv_demod {name}: rc {rc}, "
+                                 f"{len(out)} bytes; {err[-500:]}")
+        lost = {}
+        if buf == "int8":
+            ref = engine_on_reads(wire, c, read_bytes * scale, dev, buf)
+            if out != b"".join(r[1] for r in ref):
+                raise AssertionError(
+                    f"[cli] opv_demod {name}: {len(out) // 134} frames, not "
+                    f"the {len(ref)} its engine emits on the same reads")
+            # the reads as float32 pairs, as the JAX CLI feeds them
+            same_stream(engine_on_reads(wire, c, read_bytes * scale, dev,
+                                        buf, f32=True), ref,
+                        f"opv_demod {name} engine: float32 pairs vs int16")
+            for ch, w in enumerate(want):
+                miss = w - Counter(r[1] for r in ref if r[0] == ch)
+                if miss:
+                    lost[ch] = sum(miss.values())
+            held = (f"== its engine on the same reads, {len(ref)} frames, "
+                    f"and == the engine fed them as float32 pairs")
+        else:
+            wrong = {b[:12].hex(): (got.get(b, 0), k)
+                     for b, k in expect.items() if got.get(b, 0) != k}
+            if wrong or extra > (c - STREAM_CLEAN) * STREAM_GAP_FRAMES:
+                raise AssertionError(
+                    f"[cli] opv_demod {name}: frames emitted (got, want) "
+                    f"{list(wrong.items())[:6]}; {extra} frames not "
+                    f"transmitted")
+            held = f"{n_want}/{n_want} transmitted frames emitted once"
+        if not (final.get("final") and final["decoded"] == len(out) // 134
+                and final["channels"] == c):
+            raise AssertionError(f"[cli] opv_demod {name}: final metrics "
+                                 f"{final} against {len(out) // 134} frames")
+        need = ["viterbi_r4", f"symbol_soft[{buf}]", "symbol_soft[float32]"]
+        if min(counts[k] for k in need) <= 0:
+            raise AssertionError(f"[cli] opv_demod {name}: a kernel never "
+                                 f"launched: {counts}")
+        feeds = -(-len(wire) // (read_bytes * scale))
+        msps = c * n / dt / 1e6
+        runs[name] = dict(seconds=dt, msamples_s=msps,
+                          x_real_time=msps / (c * REAL_TIME_MSPS),
+                          feeds=feeds, ms_per_feed=dt * 1e3 / feeds,
+                          frames=len(out) // 134, not_transmitted=extra,
+                          lost_by_channel=lost,
+                          metrics_lines=len(lines), launches=counts,
+                          blocks=final.get("blocks_by_program"))
+        log(f"[cli] opv_demod -s --fast -r -q --channels {c} --buf {name}: "
+            f"{held}, byte-exact (+{extra} flywheel frames over the gaps); "
+            f"transmitted frames lost {sum(lost.values())} of {n_want} "
+            f"(by channel {lost}); final metrics line decoded "
+            f"{final['decoded']}; {c} x {n} samples in {dt:.3f} s host clock "
+            f"= {msps:.1f} Msamples/s = {runs[name]['x_real_time']:.2f} x "
+            f"real time; {feeds} reads of {scale} MiB, "
+            f"{dt * 1e3 / feeds:.3f} ms each; blocks "
+            f"{final.get('blocks_by_program')}; launches {counts} ({card})")
+    # the wire-to-pairs view of every read alone, at both sizes
+    from opv_tpu_torch.io.iq import iq_bytes_to_i16_pairs
+    for scale in (1, CLI_BIG_READ):
+        step = read_bytes * scale
+        t0 = time.perf_counter()
+        for off in range(0, len(wire), step):
+            iq_bytes_to_i16_pairs(wire[off:off + step], channels=c)
+        conv_s = time.perf_counter() - t0
+        runs[f"conversion_s_{scale}_mib"] = conv_s
+        log(f"[cli] iq_bytes_to_i16_pairs alone over the {scale} MiB reads: "
+            f"{conv_s:.3f} s, {conv_s * 1e3 / -(-len(wire) // step):.3f} ms "
+            f"per read (host clock; {card})")
+    return launches, runs
+
+
+def start_modem(argv):
+    """opv_modem as a process on a fresh port, once it listens; stdout is
+    piped.  Returns (process, port)."""
+    import select
+    port = free_port()
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "opv_tpu_torch.cli.opv_modem", "-p", str(port),
+                             *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, cwd=repo_root())
+    seen, deadline = b"", time.time() + CLI_START_S
+    while b"Listening" not in seen and proc.poll() is None \
+            and select.select([proc.stderr], [], [],
+                              max(0.0, deadline - time.time()))[0]:
+        seen += proc.stderr.readline()
+    if b"Listening" not in seen:
+        stop(proc)
+        raise AssertionError(f"opv_modem {argv} did not listen: "
+                             f"{seen[-1000:]!r}")
+    return proc, port
+
+
+def stop(proc) -> bytes:
+    """SIGTERM, then wait (kill after 60 s); the rest of stdout."""
+    proc.terminate()
+    try:
+        out, _ = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return out or b""
+
+
+def cli_processes(x, card):
+    """opv_demod at 1 channel with no --device, and opv_modem -R --fast,
+    -l --fast and -t -o, each as its own process."""
+    import socket
+    import tempfile
+    from opv_tpu_torch.core.framing import build_bert_frame
+    # 1. the default device is the card: channel 0 of the main stream
+    sent = b"".join(bytes(f) for f in build_bert_frame(
+        "W5NYV", frame_num=np.arange(FRAMES)))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "opv_tpu_torch.cli.opv_demod",
+                        "-s", "--fast", "-r", "-q"], input=wire_bytes(x[:1]),
+                       capture_output=True, timeout=300, cwd=repo_root())
+    demod_s = time.perf_counter() - t0
+    if r.returncode != 0 or r.stdout != sent:
+        raise AssertionError(f"[cli] opv_demod process, default device: rc "
+                             f"{r.returncode}, {len(r.stdout)} bytes against "
+                             f"{len(sent)}; {r.stderr.decode()[-800:]}")
+    # 2. -R --fast: bert3's frames over UDP
+    listener = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    listener.bind(("127.0.0.1", 0))
+    listener.settimeout(60)
+    r = subprocess.run([sys.executable, "-m", "opv_tpu_torch.cli.opv_modem",
+                        "-R", "--fast", "-q", "-r",
+                        str(listener.getsockname()[1])],
+                       input=golden("bert3.iq"), capture_output=True,
+                       timeout=300, cwd=repo_root())
+    try:
+        got = [listener.recvfrom(4096)[0] for _ in range(3)]
+    finally:
+        listener.close()
+    if r.returncode != 0 or b"".join(got) != golden("bert3.frames"):
+        raise AssertionError(f"[cli] opv_modem -R --fast: rc {r.returncode},"
+                             f" frames {[g[:8].hex() for g in got]}")
+    # 3. -l --fast: frames at a frame's pacing, echo latency; a warm-up
+    # burst first (the server's first frames pay for loading the CUDA
+    # kernels and for acquisition), then the timed frames
+    frames = [bytes(f) for f in build_bert_frame(
+        "W5NYV", frame_num=np.arange(CLI_ECHO_WARM + CLI_ECHO_FRAMES))]
+    proc, port = start_modem(["-l", "--fast"])
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    sent_at, back = {}, []
+
+    def paced(batch, until):
+        """Send `batch` a frame's time apart, collecting echoes, then wait
+        until `until` echoes are back."""
+        s.settimeout(0.002)
+        t_next = time.perf_counter()
+        for f in batch:
+            sent_at[f] = time.perf_counter()
+            s.sendto(f, ("127.0.0.1", port))
+            t_next += CLI_PACING_S
+            while time.perf_counter() < t_next:
+                try:
+                    back.append((s.recvfrom(4096)[0], time.perf_counter()))
+                except socket.timeout:
+                    pass
+        s.settimeout(60)
+        while len(back) < until:
+            back.append((s.recvfrom(4096)[0], time.perf_counter()))
+    try:
+        paced(frames[:CLI_ECHO_WARM], CLI_ECHO_WARM - 1)
+        paced(frames[CLI_ECHO_WARM:], len(frames) - 1)
+    finally:
+        stop(proc)
+        s.close()
+    if [b for b, _ in back] != frames[:len(back)]:
+        raise AssertionError("[cli] opv_modem -l --fast: echoed frames are "
+                             "not the frames sent, in order")
+    cold = (back[0][1] - sent_at[back[0][0]]) * 1e3
+    lat = sorted((t - sent_at[b]) * 1e3 for b, t in back[CLI_ECHO_WARM:])
+    p50, p95 = lat[len(lat) // 2], lat[int(0.95 * (len(lat) - 1))]
+    # 4. -t -o: stdout, tee and the exact modulation of two frames
+    with tempfile.TemporaryDirectory() as tmp:
+        tee = f"{tmp}/tee.iq"
+        proc, port = start_modem(["-t", "-o", tee])
+        want = 2 * SPF * 4
+        out = b""
+        try:
+            tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            for f in frames[:2]:
+                tx.sendto(f, ("127.0.0.1", port))
+            tx.close()
+            deadline = time.time() + 60
+            while len(out) < want and time.time() < deadline:
+                out += proc.stdout.read1(1 << 20)
+        finally:
+            out += stop(proc)
+        with open(tee, "rb") as fh:
+            tee_bytes = fh.read()
+    exact = tx_cpu(np.frombuffer(b"".join(frames[:2]), np.uint8
+                                      ).reshape(2, 134), exact=True)
+    if out != exact or tee_bytes != out + bytes(4000 * 4):
+        raise AssertionError(f"[cli] opv_modem -t -o: stdout {len(out)} bytes "
+                             f"== exact modulation {out == exact}, tee "
+                             f"{len(tee_bytes)} bytes == stdout + flush "
+                             f"{tee_bytes == out + bytes(16000)}")
+    log(f"[cli] processes: opv_demod -s --fast -r -q with no --device decoded "
+        f"{FRAMES}/{FRAMES} frames byte-exact in {demod_s:.1f} s (process "
+        f"start included); opv_modem -R --fast delivered bert3's 3 frames; "
+        f"-l --fast echoed {len(back)}/{len(frames)} frames sent every "
+        f"{CLI_PACING_S * 1e3:.0f} ms byte-equal: the first {cold:.1f} ms "
+        f"after it was sent, then over {len(lat)} frames after "
+        f"{CLI_ECHO_WARM} of warm-up echo latency p50 {p50:.2f} ms p95 "
+        f"{p95:.2f} ms (host clock); -t -o stdout == tee == the exact "
+        f"modulation of 2 frames ({card})")
+    return dict(default_device_demod_s=demod_s, echo_frames=len(back),
+                echo_first_ms=cold, echo_p50_ms=p50, echo_p95_ms=p95,
+                echo_ms=lat)
+
+
+def phase_cli(x, frames, delays, dev, card, fp64_ops_per_s: float):
+    """The port's CLIs on the card (phase 9)."""
+    t0 = time.perf_counter()
+    mod_launches, kernel, tx = cli_mod(dev, card, fp64_ops_per_s)
+    demod_launches, demod = cli_demod(x, frames, delays, dev, card)
+    procs = cli_processes(x, card)
+    launches = {k: mod_launches[k] + demod_launches[k] for k in mod_launches}
+    log(f"[cli] launches over the in-process runs {launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, mod_launches=mod_launches,
+                phase_track=kernel, tx=tx, demod=demod, processes=procs)
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
-    import pathlib
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1115,6 +1562,7 @@ def main() -> int:
     del state
     stream = phase_stream(x, frames, delays, dev, card)
     modes = phase_modes(x, frames, delays, dev, card)
+    cli = phase_cli(x, frames, delays, dev, card, PEAK_OPS_PER_S["f64"])
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -1126,6 +1574,7 @@ def main() -> int:
     for k in kernels:
         k["launches_stream"] = stream["launches"][k["name"]]
         k["launches_modes"] = modes["launches"][k["name"]]
+        k["launches_cli"] = cli["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -1133,9 +1582,18 @@ def main() -> int:
             name=key, route="cuda", source="opv_tpu_torch/csrc/symbol_soft.cu",
             replaces="opv_tpu/ops/pallas/correlate.py:37",
             launches=launches[key], launches_stream=stream["launches"][key],
-            launches_modes=modes["launches"][key], **soft[name]))
+            launches_modes=modes["launches"][key],
+            launches_cli=cli["launches"][key], **soft[name]))
+    kernels.append(dict(
+        name="phase_track", route="cuda",
+        source="opv_tpu_torch/csrc/phase_track.cu",
+        replaces="opv_tpu/tx/modulator.py:188",
+        launches=cli["mod_launches"]["phase_track"],
+        launches_stream=stream["launches"]["phase_track"],
+        launches_modes=modes["launches"]["phase_track"],
+        launches_cli=cli["launches"]["phase_track"], **cli["phase_track"]))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
-                      "stream": stream, "modes": modes,
+                      "stream": stream, "modes": modes, "cli": cli,
                       "peak_bytes": peak}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ import os
 
 import torch
 
+from opv_tpu_torch.ops import phase_track as _phase
 from opv_tpu_torch.ops import symbol_soft as _soft
 from opv_tpu_torch.ops import viterbi as _vit
 
@@ -52,17 +53,27 @@ def symbol_soft(rows, kern, resc, phi, nsym: int) -> torch.Tensor:
     return _soft.symbol_soft_reference(rows, kern, resc, phi, nsym)
 
 
+def phase_track(ph0, incs, n: int):
+    """The exact modulator's serial phase recurrence (ops/phase_track.py
+    contract) -> (phases (T, n), final (T,)) float64."""
+    if _route(ph0) == "cuda":
+        return _phase.phase_track_cuda(ph0, incs, n)
+    return _phase.phase_track_reference(ph0, incs, n)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset (the soft stage
     once per row type)."""
     return {"viterbi_r4": _vit.viterbi_r4_cuda.launches,
             "viterbi_r2": _vit.viterbi_r2_cuda.launches,
             **{f"symbol_soft[{rows}]": n
-               for rows, n in _soft.symbol_soft_cuda.launches.items()}}
+               for rows, n in _soft.symbol_soft_cuda.launches.items()},
+            "phase_track": _phase.phase_track_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     _vit.viterbi_r4_cuda.launches = 0
     _vit.viterbi_r2_cuda.launches = 0
+    _phase.phase_track_cuda.launches = 0
     for rows in _soft.symbol_soft_cuda.launches:
         _soft.symbol_soft_cuda.launches[rows] = 0

@@ -246,3 +246,22 @@ def test_pipelined_agc_silent_tail_matches_jax():
         [(r[0], r[1], r[4]) for r in sync]
     tail = [a for a, b in zip(got, sync) if a != b and a[0] == 0]
     assert len(tail) == 4 and all(r[2] == 0 and r[3] == 0.0 for r in tail)
+
+
+def test_silent_first_feed_matches_jax():
+    """opv-demod -s --fast --buf int8 at 64 channels reads 4,096 samples
+    per channel at a time, so a channel whose signal starts later is
+    silent on the first feed, where AGC primes.  Both packages floor its
+    step at 1e-6; the signal that follows saturates, and the next adoption
+    re-quantizes that window to zeros, so channel 1 loses frames the same
+    way in both, while channel 0 decodes every frame (ROADMAP queue 3)."""
+    s, frames = signal(12)
+    delays = (0, 5000)
+    x = np.zeros((2, len(s) + max(delays) + 24), np.complex64)
+    for c, d in enumerate(delays):
+        x[c, d:d + len(s)] = s
+    got, _, _ = _both(x, chunk=4096, block_frames=4, dtype="int8",
+                      pipeline=True)
+    assert [r[1] for r in got if r[0] == 0] == [bytes(f) for f in frames]
+    # the first nine frames of the late channel are lost
+    assert [r[1] for r in got if r[0] == 1] == [bytes(f) for f in frames[9:]]

@@ -27,10 +27,22 @@ MODULES = [
     "opv_tpu_torch.ops.viterbi",
     "opv_tpu_torch.ops.symbol_soft",
     "opv_tpu_torch.ops.registry",
+    "opv_tpu_torch.ops.phase_track",
     "opv_tpu_torch.stream",
     "opv_tpu_torch.stream.locked",
     "opv_tpu_torch.stream.state",
     "opv_tpu_torch.entry",
+    "opv_tpu_torch.io",
+    "opv_tpu_torch.io.iq",
+    "opv_tpu_torch.io.udp",
+    "opv_tpu_torch.utils",
+    "opv_tpu_torch.utils.display",
+    "opv_tpu_torch.utils.metrics",
+    "opv_tpu_torch.cli",
+    "opv_tpu_torch.cli._device",
+    "opv_tpu_torch.cli.opv_mod",
+    "opv_tpu_torch.cli.opv_demod",
+    "opv_tpu_torch.cli.opv_modem",
 ]
 
 
@@ -79,7 +91,7 @@ def test_cuda_entry_point_without_cuda_raises():
     """No CPU fallback hides the device: the CUDA wrappers refuse CPU
     tensors, and the registry sends CPU tensors to the twins."""
     import torch
-    from opv_tpu_torch.ops import symbol_soft, viterbi
+    from opv_tpu_torch.ops import phase_track, symbol_soft, viterbi
     soft = torch.zeros((1, 2144), dtype=torch.int32)
     with pytest.raises(ValueError):
         viterbi.viterbi_r4_cuda(soft)
@@ -89,4 +101,8 @@ def test_cuda_entry_point_without_cuda_raises():
     with pytest.raises(ValueError):
         symbol_soft.symbol_soft_cuda(rows, torch.zeros((1, 80, 8)),
                                      torch.ones(1), torch.zeros((1, 2, 2)), 2)
+    with pytest.raises(ValueError):
+        phase_track.phase_track_cuda(torch.zeros(2, dtype=torch.float64),
+                                     (0.1, -0.1), 5)
     assert viterbi.viterbi_r4_cuda.launches == 0
+    assert phase_track.phase_track_cuda.launches == 0
