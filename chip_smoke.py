@@ -82,11 +82,35 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               echoing frames sent at 40 ms pacing (echo latency p50/p95
               after a warm-up), -t -o with stdout equal to the tee and to
               the exact modulation
- 10. the kernels JSON line (launches: the main path's, for phase_track the
+ 10. wideband the wideband receiver (WidebandReceiver: polyphase
+              channelizer + locked engine) on wideband-64: 64 channels x 12
+              frames of their own stations at one digitizer rate, channel c
+              from sample 2000 + 487 c, synthesized on the card (~69 M
+              samples).  (a) channelize over one quantum, card against
+              cpu, its ms and bound; (b) synchronous float32, block_frames
+              4: fed a window, quanta, then flushed; its tuples against the
+              same receiver on the cpu, and against the transmitted frames
+              (each once at most, byte-exact, on its channel, one 86,720
+              grid per channel; the frames lost to false locks before a
+              channel's own start are counted, ROADMAP queue 3; at the
+              level of (h) every frame must come out), the engine's first
+              K3 and K1 call of each program held against the twins; (c)
+              pipelined and (d) ragged chunks equal to (b), also at the
+              level of (h); (e) int8 + AGC: synchronous and pipelined at
+              the level of (h), every frame once, byte-exact; synchronous
+              at full scale against the same receiver on the cpu, frames
+              as (b); (f) the K = 4 signal of tests/test_wideband.py on
+              the card against the cpu; (g) Msamples/s and the multiple
+              of real time on a frame-periodic stream (float32 and int8 + AGC,
+              synchronous and pipelined, and pipelined under
+              set_sync_debug_mode("error")); (h) opv_demod -s --fast
+              --wideband 64 -r -q in this process on (b)'s signal as int16
+              wire bytes: its receiver's frames, Msamples/s
+ 11. the kernels JSON line (launches: the main path's, for phase_track the
      cli phase's opv_mod runs; launches_stream: the stream phase's two
      runs; launches_modes: the two pipelined runs of the modes phase;
-     launches_cli: the cli phase's in-process runs), the card line, then
-     the result line
+     launches_cli: the cli phase's in-process runs; launches_wideband: the
+     wideband phase's runs (b)-(e)), the card line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 There is no CPU fallback: without a CUDA device it exits non-zero and
@@ -120,7 +144,9 @@ KERNEL_REPS = 20
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12,
                   # float64 outside the tensor cores (the same datasheet)
-                  "f64": 34e12}
+                  "f64": 34e12,
+                  # float64 on the tensor cores (a DGEMM; the same datasheet)
+                  "f64_tensor": 67e12}
 #: int32 operations of the Viterbi per trellis state per step: two adds
 #: (each predecessor's path metric plus its branch metric), a compare of
 #: the two candidates and a select of the survivor
@@ -170,6 +196,35 @@ CLI_TRACK_REPS = 5
 CLI_START_S = 120
 CLI_BIG_READ = 16
 REAL_TIME_MSPS = 2.168        # one channel's sample rate, Msamples/s
+#: the wideband phase (wideband-64): K channels, the engine's block, frames
+#: per channel, channel c's lead WB_LEAD + WB_LEAD_STEP c channel samples
+WB_K = 64
+WB_BF = 4
+WB_FRAMES = 12
+WB_LEAD = 2000
+WB_LEAD_STEP = 487
+#: a frame that was not transmitted (a quiet channel's leakage, a false
+#: lock's garbage) must have a metric above this (tests/test_wideband.py)
+WB_LEAK_METRIC = 100
+#: ... and its sync quality may differ by this between the card and the
+#: cpu (float32 order; at most 2.63e-4 seen, on a false lock's garbage,
+#: H100)
+WB_GARBAGE_Q_TOL = 1e-3
+#: each carrier's gain on the int16 wire of (h): K carriers at full scale
+#: sum to at most 32767
+WB_WIRE_GAIN = 32767.0 / (WB_K * 16383.0)
+#: channelize on the card against the cpu: within this of max|y|
+WB_Y_RTOL = 1e-5
+WB_CHAN_REPS = 10
+#: (d): ragged chunk sizes, numpy's generator from this seed
+WB_RAGGED = (1_000_000, 9_000_000)
+WB_RAGGED_SEED = 12
+#: (g): the periodic stream's least period (frames), warm-up and timed
+#: quanta; (h): the block opv_demod --wideband uses by default
+WB_PERIOD_FRAMES = 8
+WB_WARM_QUANTA = 5
+WB_TIMED_QUANTA = 12
+WB_CLI_BLOCK = 2
 
 
 def log(msg: str) -> None:
@@ -883,24 +938,31 @@ def phase_stream(x, frames, delays, dev, card):
                 twins=twins, peak_bytes=peak)
 
 
-def strict_launches(sd) -> list:
-    """Run every predicted launch of the pipelined engine `sd` (window
-    complete -> predicted program queued, _launch_predicted) under
-    torch.cuda.set_sync_debug_mode("error"): a synchronizing CUDA call
-    there raises.  Returns [launches checked], counting as they run."""
+def sync_checked(obj, name: str, checked: list):
+    """Run every call of obj.name under torch.cuda.set_sync_debug_mode(
+    "error"), so a synchronizing CUDA call there raises, counting the
+    calls into checked[0].  Returns the original, for restoring."""
     import torch
-    checked = [0]
-    launch = sd._launch_predicted
+    fn = getattr(obj, name)
 
-    def strict(*a):
+    def strict(*a, **kw):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = launch(*a)
+            out = fn(*a, **kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         checked[0] += 1
         return out
-    sd._launch_predicted = strict
+    setattr(obj, name, strict)
+    return fn
+
+
+def strict_launches(sd) -> list:
+    """Run every predicted launch of the pipelined engine `sd` (window
+    complete -> predicted program queued, _launch_predicted) under the
+    sync-debug check.  Returns [launches checked], counting as they run."""
+    checked = [0]
+    sync_checked(sd, "_launch_predicted", checked)
     return checked
 
 
@@ -1511,6 +1573,497 @@ def phase_cli(x, frames, delays, dev, card, fp64_ops_per_s: float):
                 phase_track=kernel, tx=tx, demod=demod, processes=procs)
 
 
+def wideband_feed(dev):
+    """wideband-64: (n,) complex64 on `dev`, WB_K channels each carrying
+    WB_FRAMES BERT frames of its own station (callsign CH<c>, frame_num
+    arange + 100 c), channel c starting after WB_LEAD + WB_LEAD_STEP c
+    channel samples; summed in complex128 by the port's simulation
+    helpers.  Returns (x, the frames by channel [[bytes]])."""
+    import torch
+    from opv_tpu_torch.core.framing import build_bert_frame
+    from opv_tpu_torch.rx.channelizer import msk_wideband, synthesize_wideband
+    k, frames, x = WB_K, [], None
+    for c in range(k):
+        fr = build_bert_frame(f"CH{c:02d}",
+                              frame_num=np.arange(WB_FRAMES) + 100 * c)
+        frames.append([bytes(f) for f in fr])
+        s = msk_wideband(fr, k, device=dev)
+        if x is None:
+            n = (WB_LEAD + WB_LEAD_STEP * (k - 1)) * k + s.shape[0]
+            x = torch.zeros(n, dtype=torch.complex128, device=dev)
+        lead = (WB_LEAD + WB_LEAD_STEP * c) * k
+        s = torch.cat([torch.zeros(lead, dtype=s.dtype, device=dev), s])
+        x += synthesize_wideband({c: s}, k, x.shape[0], device=dev)
+        del s
+    return x.to(torch.complex64), frames
+
+
+def drive_wideband(rx, x, chunks=None):
+    """Feed `x` to the WidebandReceiver `rx`: one window, then
+    quantum-sized feeds (one channelize call and one engine feed each),
+    the rest, then flush(); or the given chunk sizes (any number of
+    channelize calls per feed), the rest, then flush()."""
+    import torch
+    out = []
+    if chunks is None:
+        out += rx.feed(x[: rx.window])
+        off = rx.window
+        while off + rx.quantum <= x.shape[0]:
+            out += rx.feed(x[off:off + rx.quantum])
+            off += rx.quantum
+    else:
+        off = 0
+        for m in chunks:
+            out += rx.feed(x[off:off + m])
+            off += m
+    out += rx.feed(x[off:]) + rx.flush()
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    return out
+
+
+def wideband_k4():
+    """tests/test_wideband.py::test_streaming_decode's signal on the CPU:
+    K = 4, 6 frames on channels 0 and 2 after a 2000-sample lead, (n,)
+    complex128; and the frames by channel [[bytes]]."""
+    import torch
+    from opv_tpu_torch.core.framing import build_bert_frame
+    from opv_tpu_torch.rx.channelizer import msk_wideband, synthesize_wideband
+    k = 4
+    sets = {0: build_bert_frame("W5NYV", frame_num=np.arange(6)),
+            2: build_bert_frame("TEST", frame_num=np.arange(6))}
+    sig = {c: torch.cat([torch.zeros(2000 * k, dtype=torch.complex128),
+                         msk_wideband(f, k, device="cpu")])
+           for c, f in sets.items()}
+    x = synthesize_wideband(sig, k, max(s.shape[0] for s in sig.values()),
+                            device="cpu")
+    return x, [[bytes(f) for f in sets.get(c, [])] for c in range(k)]
+
+
+def k4_chunks(n: int) -> list:
+    """That test's ragged feed: sizes from numpy's generator, seed 0."""
+    rng, sizes = np.random.default_rng(0), []
+    while sum(sizes) < n:
+        sizes.append(int(rng.integers(10_000, 400_000)))
+    return sizes
+
+
+def check_wideband(out, frames, what: str) -> dict:
+    """Every transmitted frame emitted at most once, byte-exact, on its own
+    channel, metric <= 16, at positions a multiple of 86,720 apart (its
+    index in the channel's stream); any other tuple has a metric above
+    WB_LEAK_METRIC.  Returns {channel: frames lost} and the other tuples'
+    count."""
+    owner = {b: (c, j) for c, fs in enumerate(frames) for j, b in enumerate(fs)}
+    lost, other = {}, 0
+    for c, fs in enumerate(frames):
+        mine = [r for r in out if r[0] == c]
+        true = [r for r in mine if r[1] in owner]
+        swapped = [owner[r[1]][0] for r in true if owner[r[1]][0] != c]
+        idx = [owner[r[1]][1] for r in true]
+        bad = [(r[2], r[4]) for r in true if r[2] > 16]
+        grid = {r[4] - SPF * owner[r[1]][1] for r in true}
+        if swapped or len(set(idx)) != len(idx) or bad or len(grid) > 1:
+            raise AssertionError(
+                f"wideband {what} channel {c}: frames of channels {swapped}; "
+                f"frame indices {idx}; metric > 16 at {bad[:4]}; grid "
+                f"origins {sorted(grid)[:4]}")
+        junk = [(r[2], r[4]) for r in mine if r[1] not in owner]
+        if any(m <= WB_LEAK_METRIC for m, _ in junk):
+            raise AssertionError(f"wideband {what} channel {c}: frames not "
+                                 f"transmitted with metric <= "
+                                 f"{WB_LEAK_METRIC}: {junk[:4]}")
+        other += len(junk)
+        if len(fs) - len(true):
+            lost[c] = len(fs) - len(true)
+    return dict(lost=lost, other=other)
+
+
+def same_wideband(got, want, frames, what: str) -> dict:
+    """The card's tuples against the CPU's (or another run's): the same
+    count, channels and positions; bytes, metric and sync quality (within
+    STREAM_Q_TOL) equal wherever either tuple is a transmitted frame.
+    Frames not transmitted (a quiet channel's leakage, a false lock's
+    garbage) decode from soft values that are small differences of large
+    tone energies, so float32 order moves their bits and their sync
+    quality: there both metrics must exceed WB_LEAK_METRIC and the sync
+    qualities agree within WB_GARBAGE_Q_TOL (the lock decisions they feed
+    show in the positions of every later tuple).  Returns how many such
+    tuples differed in bits and their largest sync-quality difference."""
+    sent = {b for fs in frames for b in fs}
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} tuples against {len(want)}")
+    diff, dq = 0, 0.0
+    for g, w in zip(got, want):
+        garbage = g[1] not in sent and w[1] not in sent \
+            and min(g[2], w[2]) > WB_LEAK_METRIC
+        tol = WB_GARBAGE_Q_TOL if garbage else STREAM_Q_TOL
+        if (g[0], g[4]) != (w[0], w[4]) or abs(g[3] - w[3]) > tol \
+                or ((g[1], g[2]) != (w[1], w[2]) and not garbage):
+            raise AssertionError(f"{what}: tuple {(g[0], g[2], g[3], g[4])} "
+                                 f"against {(w[0], w[2], w[3], w[4])}")
+        if garbage:
+            diff += (g[1], g[2]) != (w[1], w[2])
+            dq = max(dq, abs(g[3] - w[3]))
+    return dict(garbage_differing=diff, garbage_max_dq=dq)
+
+
+def channelize_bound(n_in: int, k: int, m: int, taps: int = 12):
+    """(bound ms, what bounds it) of one channelize call: the wideband
+    input read once and the (K, M) complex64 output written once, against
+    the float32 polyphase legs (a multiply and an add per tap and real
+    component) and the float64 DFT product (2 x M x 2K x 2K)."""
+    nbytes = 8 * n_in + 8 * k * m
+    t_ops = (m * k * 2 * taps * 2 / PEAK_OPS_PER_S["f32"]
+             + 2 * m * (2 * k) ** 2 / PEAK_OPS_PER_S["f64_tensor"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def periodic_wideband(dev):
+    """A frame-periodic WB_K-channel stream for the throughput arms: one
+    station's frames 1..P (P >= WB_PERIOD_FRAMES, the smallest whose bits
+    leave the modulator's sign state where it began, so the waveform
+    wraps without a glitch) on every channel, channel c cyclically delayed
+    by (c % 40) + 487 c samples.  Returns (x doubled by a window's worth
+    for wrap-free slicing, its period in samples)."""
+    import torch
+    from opv_tpu_torch.core.framing import (build_bert_frame, encode_frame,
+                                            frame_to_symbol_bits)
+    from opv_tpu_torch.rx.channelizer import msk_wideband, synthesize_wideband
+    k, p = WB_K, WB_PERIOD_FRAMES
+    while True:
+        fr = build_bert_frame("W5NYV", frame_num=np.arange(p + 1))
+        bits = frame_to_symbol_bits(encode_frame(torch.from_numpy(fr[1:])))
+        if int(bits.sum()) % 2 == 0:
+            break
+        p += 1
+    s = msk_wideband(fr, k, device=dev)[SPF * k:(p + 1) * SPF * k]
+    x = torch.zeros(s.shape[0], dtype=torch.complex128, device=dev)
+    for c in range(k):
+        d = ((c % 40) + 487 * c) * k
+        x += synthesize_wideband({c: torch.roll(s, d)}, k, x.shape[0],
+                                 device=dev)
+    return x.to(torch.complex64), s.shape[0]
+
+
+def wideband_throughput(xp, period: int, dev, dtype: str, pipeline: bool,
+                        strict: bool = False):
+    """A WidebandReceiver (block_frames WB_BF) on the periodic stream: one
+    window, WB_WARM_QUANTA quanta, then WB_TIMED_QUANTA timed on the host
+    clock (synchronized at both ends).  strict: every timed quantum's
+    device work outside the result fetch (channelize, the wideband slide,
+    the engine's append and its predicted launch) runs under
+    torch.cuda.set_sync_debug_mode("error").  Returns a record."""
+    import torch
+    from opv_tpu_torch.stream import WidebandReceiver
+    from opv_tpu_torch.stream import wideband as wbmod
+    rx = WidebandReceiver(WB_K, block_frames=WB_BF, dtype=dtype,
+                          pipeline=pipeline, timing=True, device=dev)
+    q = rx.quantum
+    src = torch.cat([xp, xp[: rx.window + q]])
+
+    def chunk(pos):
+        pos %= period
+        return src[pos:pos + q]
+
+    rx.feed(src[: rx.window])
+    pos = rx.window
+    for _ in range(WB_WARM_QUANTA):
+        rx.feed(chunk(pos))
+        pos += q
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    nb = len(rx.demod.block_stats)
+    checked, restore = [0], []
+    if strict:
+        for obj, name in ((wbmod, "channelize"), (rx, "_slide"),
+                          (rx.demod, "_append"),
+                          (rx.demod, "_launch_predicted")):
+            restore.append((obj, name, sync_checked(obj, name, checked)))
+    t0 = time.perf_counter()
+    for _ in range(WB_TIMED_QUANTA):
+        rx.feed(chunk(pos))
+        pos += q
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    for obj, name, fn in restore:
+        setattr(obj, name, fn)
+    blocks = rx.demod.block_stats[nb:]
+    msps = WB_TIMED_QUANTA * q / dt / 1e6
+    rec = dict(msamples_s=msps, x_real_time=msps / (WB_K * REAL_TIME_MSPS),
+               ms_per_quantum=dt * 1e3 / WB_TIMED_QUANTA,
+               device_wait_ms=statistics.mean(b["device_wait_ms"]
+                                              for b in blocks),
+               host_ms=statistics.mean(b["host_ms"] for b in blocks),
+               steady=sum(b["tag"] == "steady" for b in blocks),
+               blocks=len(blocks),
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    if strict:
+        rec["sync_checked_calls"] = checked[0]
+        if checked[0] < 3 * WB_TIMED_QUANTA:
+            raise AssertionError(f"sync-debug arm checked {checked[0]} calls "
+                                 f"in {WB_TIMED_QUANTA} quanta")
+    return rec
+
+
+def phase_wideband(dev, card):
+    """The wideband receiver on the card at K = 64 (phase 10)."""
+    import torch
+    from opv_tpu_torch.cli import opv_demod
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.rx.channelizer import channelize
+    from opv_tpu_torch.stream import WidebandReceiver
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    x, frames = wideband_feed(dev)
+    torch.cuda.synchronize(dev)
+    n = x.shape[0]
+    n_sent = sum(len(f) for f in frames)
+    log(f"[wideband] wideband-{WB_K}: {n} samples ({n * 8 / 1e6:.0f} MB "
+        f"complex64) synthesized on the card in "
+        f"{time.perf_counter() - t_phase:.1f} s; {n_sent} frames, channel c "
+        f"from sample {WB_LEAD} + {WB_LEAD_STEP} c")
+    res = {}
+    # (a) the channelizer over one quantum: card against CPU, ms, bound
+    rx = WidebandReceiver(WB_K, block_frames=WB_BF, device=dev)
+    win = x[: rx.window]
+    y = channelize(win, WB_K)
+    y_cpu = channelize(win.cpu(), WB_K)
+    err = float((y.cpu() - y_cpu).abs().max())
+    ref = float(y_cpu.abs().max())
+    if not err <= WB_Y_RTOL * ref:
+        raise AssertionError(f"channelize card vs cpu: {err:.4g} > "
+                             f"{WB_Y_RTOL} x {ref:.4g}")
+    ms = cuda_ms(lambda: channelize(win, WB_K), WB_CHAN_REPS)
+    m = y.shape[1]
+    bound_ms, bound_by, nbytes = channelize_bound(win.shape[0], WB_K, m)
+    del y, y_cpu
+    res["channelize"] = dict(ms=ms, max_abs_err=err, max_rel_err=err / ref,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             input_samples=win.shape[0], output=[WB_K, m],
+                             ms_air=m / REAL_TIME_MSPS / 1e3)
+    log(f"[wideband] (a) channelize {win.shape[0]} samples -> ({WB_K}, {m}) "
+        f"on the card against the cpu: max |card - cpu| {err:.4g} of "
+        f"max|y| {ref:.4g} (rel {err / ref:.3g}); {ms:.3f} ms per quantum "
+        f"({m / REAL_TIME_MSPS / 1e3:.1f} ms of air), bound {bound_ms:.4f} "
+        f"ms ({bound_by}, {nbytes / 1e6:.0f} MB) ({card})")
+    # (b)-(e): the counted runs of the phase
+    registry.set_viterbi_radix(4)
+    registry.reset_launch_counts()
+    runs = {}
+    rx = WidebandReceiver(WB_K, block_frames=WB_BF, device=dev, timing=True)
+    held, remove = spy_kernels(rx.demod)
+    t0 = time.perf_counter()
+    runs["b"] = drive_wideband(rx, x)
+    dt_b = time.perf_counter() - t0
+    remove()
+    after_b = registry.launch_counts()
+    if min(after_b["viterbi_r4"], after_b["symbol_soft[float32]"]) <= 0:
+        raise AssertionError(f"wideband (b): a kernel never launched {after_b}")
+    res["b"] = check_wideband(runs["b"], frames, "(b) float32")
+    res["b"].update(tuples=len(runs["b"]), seconds=dt_b,
+                    blocks=rx.stats().get("blocks_by_program"),
+                    metric0=sum(r[2] == 0 for r in runs["b"]))
+    # the same feed at a level an int16 capture of K carriers can hold
+    # (each carrier x WB_WIRE_GAIN, as in (h)): every frame comes out
+    x_wire = x * WB_WIRE_GAIN
+    level = drive_wideband(WidebandReceiver(WB_K, block_frames=WB_BF,
+                                            device=dev), x_wire)
+    res["b"]["at_wire_level"] = check_wideband(level, frames,
+                                               "(b) float32 at the wire level")
+    if res["b"]["at_wire_level"]["lost"]:
+        raise AssertionError(f"wideband (b) at the wire level: frames lost "
+                             f"{res['b']['at_wire_level']['lost']}")
+    # (c) pipelined and (d) ragged chunks, at full scale and at the wire
+    # level, each equal to (b) on the same feed
+    rng = np.random.default_rng(WB_RAGGED_SEED)
+    sizes = rng.integers(*WB_RAGGED, size=n // WB_RAGGED[0] + 1)
+    sizes = sizes[: int(np.searchsorted(np.cumsum(sizes), n)) + 1]
+    for feed, want, at in ((x, runs["b"], ""),
+                           (x_wire, level, " at the wire level")):
+        got = drive_wideband(WidebandReceiver(WB_K, block_frames=WB_BF,
+                                              pipeline=True, device=dev),
+                             feed)
+        same_stream(got, want, f"wideband (c) pipelined vs (b){at}")
+        got = drive_wideband(WidebandReceiver(WB_K, block_frames=WB_BF,
+                                              device=dev), feed, chunks=sizes)
+        same_stream(got, want, f"wideband (d) ragged vs (b){at}")
+    del got, level
+    # (e) int8 rows with AGC: synchronous and pipelined at the wire level,
+    # where every frame must come out, and synchronous at full scale, held
+    # against the same receiver on the cpu below
+    int8 = {pipe: drive_wideband(
+        WidebandReceiver(WB_K, block_frames=WB_BF, dtype="int8",
+                         pipeline=pipe, device=dev), x_wire)
+        for pipe in (False, True)}
+    int8_full = drive_wideband(WidebandReceiver(WB_K, block_frames=WB_BF,
+                                                dtype="int8", device=dev), x)
+    del x_wire
+    launches = registry.launch_counts()
+    if launches["symbol_soft[int8]"] <= after_b["symbol_soft[int8]"]:
+        raise AssertionError(f"wideband (e): int8 soft stage never launched "
+                             f"{launches}")
+    res["e"] = {name: dict(check_wideband(int8[pipe], frames,
+                                          f"(e) int8 + AGC {name}"),
+                           tuples=len(int8[pipe]))
+                for name, pipe in (("synchronous", False),
+                                   ("pipelined", True))}
+    for name in ("synchronous", "pipelined"):
+        if res["e"][name]["lost"]:
+            raise AssertionError(f"wideband (e) int8 + AGC {name} at the "
+                                 f"wire level: frames lost "
+                                 f"{res['e'][name]['lost']}")
+    # pipelined int8 AGC need not be the synchronous engine's stream: its
+    # adoptions read one more feed of statistics (ROADMAP queue 3)
+    res["e"]["differing"] = len(set(int8[True]) ^ set(int8[False]))
+    res["e"]["full_scale"] = dict(check_wideband(int8_full, frames,
+                                                 "(e) int8 + AGC full scale"),
+                                  tuples=len(int8_full))
+    kernels = hold_stream_kernels(held, "wideband float32")
+    del held
+    # (b) against the same receiver on the CPU (the plain twins)
+    t0 = time.perf_counter()
+    cpu_b = drive_wideband(WidebandReceiver(WB_K, block_frames=WB_BF,
+                                            device=cpu), x.cpu())
+    res["b"]["cpu_seconds"] = time.perf_counter() - t0
+    res["b"]["vs_cpu"] = same_wideband(runs["b"], cpu_b, frames,
+                                       "wideband (b) card vs cpu")
+    del cpu_b
+    cpu_e = drive_wideband(WidebandReceiver(WB_K, block_frames=WB_BF,
+                                            dtype="int8", device=cpu), x.cpu())
+    res["e"]["full_scale"]["vs_cpu"] = same_wideband(
+        int8_full, cpu_e, frames, "wideband (e) int8 full scale card vs cpu")
+    del cpu_e, int8_full
+    lost_b = res["b"]["lost"]
+    log(f"[wideband] (b) synchronous float32, block_frames {WB_BF}: "
+        f"{len(runs['b'])} tuples equal to the same receiver on the cpu "
+        f"({res['b']['vs_cpu']['garbage_differing']} garbage tuples differ in "
+        f"bits, both metrics > {WB_LEAK_METRIC}; their sync quality within "
+        f"{res['b']['vs_cpu']['garbage_max_dq']:.3g}); "
+        f"{n_sent - sum(lost_b.values())}"
+        f"/{n_sent} transmitted frames emitted once, byte-exact, on their "
+        f"channel, metric <= 16 ({res['b']['metric0']} at 0), one 86,720 "
+        f"grid per channel; lost {sum(lost_b.values())} (by channel "
+        f"{lost_b}); {res['b']['other']} garbage tuples (metric > "
+        f"{WB_LEAK_METRIC}); blocks {res['b']['blocks']}; {dt_b:.2f} s on the "
+        f"card, {res['b']['cpu_seconds']:.1f} s on the cpu.  Each carrier x "
+        f"{WB_WIRE_GAIN:.5f} (the level of (h)): {n_sent}/{n_sent} frames, "
+        f"{res['b']['at_wire_level']['other']} garbage tuples")
+    log(f"[wideband] (c) pipelined and (d) {len(sizes)} ragged chunks "
+        f"(numpy seed {WB_RAGGED_SEED}, {WB_RAGGED[0]}-{WB_RAGGED[1]}): "
+        f"tuples equal to (b)'s, at full scale and at the wire level "
+        f"({n_sent}/{n_sent} frames)")
+    for name in ("synchronous", "pipelined"):
+        e = res["e"][name]
+        log(f"[wideband] (e) int8 + AGC {name}, each carrier x "
+            f"{WB_WIRE_GAIN:.5f}: {n_sent}/{n_sent} transmitted frames once, "
+            f"byte-exact, on their channel, metric <= 16; {e['other']} "
+            f"garbage tuples; {e['tuples']} tuples")
+    log(f"[wideband] (e) int8 + AGC pipelined against synchronous: "
+        f"{res['e']['differing']} tuples in one run only")
+    e = res["e"]["full_scale"]
+    log(f"[wideband] (e) int8 + AGC synchronous at full scale: {e['tuples']} "
+        f"tuples equal to the same receiver on the cpu "
+        f"({e['vs_cpu']['garbage_differing']} garbage tuples differ in bits, "
+        f"both metrics > {WB_LEAK_METRIC}; their sync quality within "
+        f"{e['vs_cpu']['garbage_max_dq']:.3g}); "
+        f"{n_sent - sum(e['lost'].values())}/{n_sent} transmitted frames "
+        f"once, byte-exact, on their channel; lost {sum(e['lost'].values())} "
+        f"(by channel {e['lost']}); {e['other']} garbage tuples")
+    for h in kernels:
+        rel = (f" (rel {h['max_rel_err']:.3g})" if "max_rel_err" in h
+               else ", bit-identical")
+        log(f"[wideband] (b) {h['program']} block: {h['kernel']} at the "
+            f"engine's operands {h['shape']} against its twin, max |kernel - "
+            f"twin| {h['max_abs_err']:.4g}{rel}")
+    log(f"[wideband] launches over (b)-(e) {launches}")
+    del runs, int8
+    # (f) the K = 4 signal of tests/test_wideband.py::test_streaming_decode
+    x4, sets4 = wideband_k4()
+    four = [drive_wideband(WidebandReceiver(4, block_frames=3, device=d), x4,
+                           chunks=k4_chunks(x4.shape[0]))
+            for d in (dev, cpu)]
+    diff4 = same_wideband(four[0], four[1], sets4,
+                          "wideband (f) K=4 card vs cpu")
+    res["f"] = check_wideband(four[0], sets4, "(f) K=4")
+    if res["f"]["lost"]:
+        raise AssertionError(f"wideband (f): frames lost {res['f']['lost']}")
+    res["f"].update(tuples=len(four[0]), vs_cpu=diff4)
+    log(f"[wideband] (f) K=4 test_streaming_decode signal, ragged feeds: card "
+        f"tuples equal the cpu's ({len(four[0])} tuples; 12/12 frames of "
+        f"channels 0 and 2; {res['f']['other']} leakage tuples on channels 1 "
+        f"and 3, {diff4['garbage_differing']} differing in bits with both "
+        f"metrics > {WB_LEAK_METRIC}, sync quality within "
+        f"{diff4['garbage_max_dq']:.3g})")
+    # (g) throughput on a frame-periodic stream
+    xp, period = periodic_wideband(dev)
+    thr = {}
+    for name, dtype, pipe, strict in (
+            ("float32 synchronous", "float32", False, False),
+            ("float32 pipelined", "float32", True, False),
+            ("int8 + AGC synchronous", "int8", False, False),
+            ("int8 + AGC pipelined", "int8", True, False),
+            ("float32 pipelined, sync-debug check", "float32", True, True)):
+        r = wideband_throughput(xp, period, dev, dtype, pipe, strict)
+        thr[name] = r
+        log(f"[wideband] (g) {name}: {WB_TIMED_QUANTA} quanta "
+            f"{r['ms_per_quantum']:.3f} ms each = {r['msamples_s']:.1f} "
+            f"Msamples/s = {r['x_real_time']:.2f} x real time "
+            f"({WB_K * REAL_TIME_MSPS:.2f} Msamples/s); per block "
+            f"{r['device_wait_ms']:.3f} ms waiting on the results, "
+            f"{r['host_ms']:.3f} ms lifecycle; {r['steady']}/{r['blocks']} "
+            f"steady; peak memory {r['peak_bytes'] / 2**30:.2f} GiB"
+            + (f"; {r['sync_checked_calls']} calls under "
+               f"set_sync_debug_mode('error')" if strict else "")
+            + f" ({card})")
+    res["g"] = thr
+    del xp
+    # (h) opv_demod -s --fast --wideband 64 -r -q on (b)'s signal as wire
+    gain = WB_WIRE_GAIN
+    scaled = torch.round(torch.view_as_real(x) * gain)
+    peak = float(scaled.abs().max())
+    if peak > 32767:
+        raise AssertionError(f"wideband wire: a sample clips ({peak})")
+    wire = scaled.to(torch.int16).cpu().numpy().tobytes()
+    del scaled
+    t0 = time.perf_counter()
+    rc, out, err = run_main(opv_demod.main, ["-s", "--fast", "--wideband",
+                                             str(WB_K), "-r", "-q"], wire)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    if rc != 0 or len(out) % 134:
+        raise AssertionError(f"wideband (h): rc {rc}, {len(out)} bytes; "
+                             f"{err[-500:]}")
+    # the receiver the CLI builds, fed the same samples in the same quanta
+    xw = torch.view_as_complex(torch.from_numpy(
+        np.frombuffer(wire, "<i2").astype(np.float32).reshape(-1, 2))).to(dev)
+    rxh = WidebandReceiver(WB_K, block_frames=WB_CLI_BLOCK, pipeline=True,
+                           device=dev)
+    ref = drive_wideband(rxh, xw, chunks=[rxh.quantum] * (n // rxh.quantum))
+    if out != b"".join(r[1] for r in ref):
+        raise AssertionError(f"wideband (h): {len(out) // 134} frames, not "
+                             f"the {len(ref)} its receiver emits")
+    res["h"] = check_wideband(ref, frames, "(h) cli")
+    msps = n / dt / 1e6
+    res["h"].update(seconds=dt, msamples_s=msps,
+                    x_real_time=msps / (WB_K * REAL_TIME_MSPS),
+                    frames=len(out) // 134, wire_peak=peak)
+    lost_h = res["h"]["lost"]
+    log(f"[wideband] (h) opv_demod -s --fast --wideband {WB_K} -r -q "
+        f"in-process on (b)'s signal as int16 wire bytes (each channel x "
+        f"{gain:.5f}, peak |sample| {peak:.0f}, none clips): "
+        f"{len(out) // 134} frames == its receiver on the same samples; "
+        f"{n_sent - sum(lost_h.values())}/{n_sent} transmitted frames once, "
+        f"byte-exact, on their channel; lost {sum(lost_h.values())} (by "
+        f"channel {lost_h}); {n} samples in {dt:.3f} s host clock = "
+        f"{msps:.1f} Msamples/s = {res['h']['x_real_time']:.2f} x real time "
+        f"({card})")
+    log(f"[wideband] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, kernels=kernels, **res)
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import torch
@@ -1563,6 +2116,8 @@ def main() -> int:
     stream = phase_stream(x, frames, delays, dev, card)
     modes = phase_modes(x, frames, delays, dev, card)
     cli = phase_cli(x, frames, delays, dev, card, PEAK_OPS_PER_S["f64"])
+    del x
+    wideband = phase_wideband(dev, card)
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -1575,6 +2130,7 @@ def main() -> int:
         k["launches_stream"] = stream["launches"][k["name"]]
         k["launches_modes"] = modes["launches"][k["name"]]
         k["launches_cli"] = cli["launches"][k["name"]]
+        k["launches_wideband"] = wideband["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -1583,7 +2139,8 @@ def main() -> int:
             replaces="opv_tpu/ops/pallas/correlate.py:37",
             launches=launches[key], launches_stream=stream["launches"][key],
             launches_modes=modes["launches"][key],
-            launches_cli=cli["launches"][key], **soft[name]))
+            launches_cli=cli["launches"][key],
+            launches_wideband=wideband["launches"][key], **soft[name]))
     kernels.append(dict(
         name="phase_track", route="cuda",
         source="opv_tpu_torch/csrc/phase_track.cu",
@@ -1591,10 +2148,12 @@ def main() -> int:
         launches=cli["mod_launches"]["phase_track"],
         launches_stream=stream["launches"]["phase_track"],
         launches_modes=modes["launches"]["phase_track"],
-        launches_cli=cli["launches"]["phase_track"], **cli["phase_track"]))
+        launches_cli=cli["launches"]["phase_track"],
+        launches_wideband=wideband["launches"]["phase_track"],
+        **cli["phase_track"]))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
                       "stream": stream, "modes": modes, "cli": cli,
-                      "peak_bytes": peak}), flush=True)
+                      "wideband": wideband, "peak_bytes": peak}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

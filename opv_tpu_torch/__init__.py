@@ -1,22 +1,35 @@
-"""opv_tpu_torch: the PyTorch/CUDA port of opv_tpu's locked-grid receiver.
+"""opv_tpu_torch: the PyTorch/CUDA port of opv_tpu, the OPV MSK modem.
 
 Layout mirrors opv_tpu/ so each counterpart is easy to find:
   config.py  the numerology (the JAX package's OPVConfig, pinned equal by
              a test; kept here so the port runs without the JAX package)
   core/      codec chain: base40, randomizer, conv code, interleaver, framing
-  tx/        MSK modulator (closed-form fast path)
+  tx/        MSK modulator (the closed-form fast path and the
+             reference-exact float64 path) and the TX frame multiplexer
+             (COBS, priority-scheduled traffic -> 40 ms frames; host Python)
   rx/        sync, CFO, dense correlator, Viterbi twins, frame finisher,
              the locked-grid batch receiver (rx_locked / rx_locked_steady)
-             and its re-acquire / retime functions
-  stream/    the synchronous streaming engine (LockedStreamDemodulator)
-             and its checkpoint files (save_state / load_state)
-  ops/       hand-written CUDA kernels (csrc/*.cu) with their plain twins,
-             and the registry that dispatches between them
+             with its re-acquire / retime functions, and the polyphase
+             analysis channelizer (one wideband stream -> K channels)
+  stream/    the streaming receivers: LockedStreamDemodulator (synchronous
+             or pipelined, eager serving, int8 rows with AGC, the strided
+             hunt) and WidebandReceiver
+             (channelizer + engine), with their checkpoint files
+             (save_state / load_state)
+  ops/       hand-written CUDA kernels (csrc/*.cu: the Viterbi, the fused
+             soft stage, the exact TX's phase recurrence) with their plain
+             twins, the nvcc build, and the registry that dispatches
+             between them
+  io/        the int16 IQ wire format and the UDP frame bridge
+  utils/     the reference's stderr formats and JSON-lines metrics
+  cli/       opv_mod, opv_demod (-s --fast, --channels, --wideband) and
+             opv_modem, flag-compatible with the JAX package's
   entry.py   counterpart of __graft_entry__.entry() (rx_locked on a GPU)
 
 Plain functions on tensors; the device comes from the input tensor (the
-engine takes device=, "cuda" by default).  CPU tensors run the plain
-PyTorch twins; CUDA tensors run the kernels (or raise).  Nothing here imports jax or the JAX package.
+engines, the receivers and the CLIs take device=, "cuda" by default).  CPU
+tensors run the plain PyTorch twins; CUDA tensors run the kernels (or
+raise).  Nothing here imports jax or the JAX package.
 """
 
 from opv_tpu_torch.config import CONFIG

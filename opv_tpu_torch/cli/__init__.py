@@ -2,7 +2,7 @@
 (opv_tpu/cli/) on every path the port has:
 
     python -m opv_tpu_torch.cli.opv_mod     modulator (exact or --fast)
-    python -m opv_tpu_torch.cli.opv_demod   demodulator (-s --fast)
+    python -m opv_tpu_torch.cli.opv_demod   demodulator (-s --fast, --wideband K)
     python -m opv_tpu_torch.cli.opv_modem   UDP modem server
 
 Each runs on the card (--device cuda, the default) unless --device cpu is

@@ -16,12 +16,20 @@ Options:
             demodulate N concurrent channels; the input stream is
             sample-interleaved across channels (I0 Q0 I1 Q1 ... I{N-1}
             Q{N-1} per sample instant); frames are tagged [ch N] on stderr
+  --wideband K
+            the input is ONE digitizer stream at K x 2.168 Msamples/s; a
+            K-branch polyphase channelizer splits it into K OPV channels
+            feeding the locked engine (WidebandReceiver, pipelined).
+            Frames are tagged [ch N] on stderr; the input is fed in quanta
+            of one engine block per channel (86,720 x --block x K
+            samples), so expect about a block of latency
   --buf DT  stream-buffer dtype: auto (float32), float32, bfloat16, or int8
             (the quantization step follows the input level per channel)
-  --block N frames per engine block (default 4).  Larger blocks amortize
-            the per-block host work over more air time at +40 ms latency
-            per frame, but timing corrections happen at block boundaries,
-            so sample-clock drift tolerance shrinks with N
+  --block N frames per engine block (default 4; 2 with --wideband).
+            Larger blocks amortize the per-block host work over more air
+            time at +40 ms latency per frame, but timing corrections happen
+            at block boundaries, so sample-clock drift tolerance shrinks
+            with N
   --metrics FILE
             JSON-lines metrics snapshots ('-' for stderr), with the
             per-block device-wait vs host-lifecycle split
@@ -31,8 +39,8 @@ Options:
   --device  cuda (default), cuda:N or cpu
 
 Not ported yet, each exits with code 2 naming the ROADMAP item that brings
-it: --wideband K (item 9), batch --fast (item 10), -s without --fast, batch
-mode and -c (the float64 tracking and coherent demodulators, item 11).
+it: batch --fast (item 10), -s without --fast, batch mode and -c (the
+float64 tracking and coherent demodulators, item 11).
 
 Exit code 0 iff at least one frame decoded (opv-demod.cpp:1124, 1216).
 """
@@ -45,13 +53,25 @@ import sys
 
 #: bytes per stdin read, as opv_tpu's opv-demod -s --fast reads
 READ_BYTES = 65536 * 16
+#: least bytes per stdin read with --wideband; a read holds at least one
+#: quantum.  The feeds are exact quanta whatever the read size, so the
+#: tuples do not depend on it.
+WIDEBAND_READ_BYTES = 16 << 20
+
+
+def _usage_error(args) -> str | None:
+    """The stderr line of a refused combination of options."""
+    if args.wideband and not (args.streaming and args.fast):
+        return ("--wideband requires -s --fast (the channelizer feeds the "
+                "locked streaming engine)")
+    if args.wideband and args.channels > 1:
+        return ("--wideband and --channels are mutually exclusive (the "
+                "channelizer defines the channel count)")
+    return None
 
 
 def _unported(args) -> str | None:
     """The stderr line of an option or mode the port does not have yet."""
-    if args.wideband:
-        return ("--wideband (the polyphase channelizer and WidebandReceiver) "
-                "is not ported to opv_tpu_torch yet (ROADMAP item 9)")
     if args.coherent:
         return ("-c (the coherent Costas-loop demodulator) is not ported to "
                 "opv_tpu_torch yet (ROADMAP item 11)")
@@ -110,7 +130,7 @@ def main(argv=None) -> int:
     if args.help:
         print(__doc__, file=err)
         return 0
-    why = _unported(args)
+    why = _usage_error(args) or _unported(args)
     if why:
         print(f"opv-demod: {why}", file=err)
         return 2
@@ -123,8 +143,6 @@ def main(argv=None) -> int:
         return 1
 
     from opv_tpu_torch.config import CONFIG
-    from opv_tpu_torch.io.iq import iq_bytes_to_i16_pairs
-    from opv_tpu_torch.stream import LockedStreamDemodulator
     from opv_tpu_torch.utils.display import banner, print_frame, summary
     from opv_tpu_torch.utils.metrics import emit_json, locked_metrics
 
@@ -136,64 +154,128 @@ def main(argv=None) -> int:
             print(f"Warning: {name} is ignored in --fast streaming mode "
                   f"(feed-forward pipeline re-estimates CFO on "
                   f"acquisition and has no AFC loop)", file=err)
-    stdin = sys.stdin.buffer
     stdout = sys.stdout.buffer
-    nch = max(1, args.channels)
     metrics_out = None
     if args.metrics_file:
         metrics_out = (err if args.metrics_file == "-"
                        else open(args.metrics_file, "w"))
-    # pipelined: block N computes while block N-1's results are fetched and
-    # printed; the tuples are the synchronous engine's
-    mc = LockedStreamDemodulator(channels=nch, pipeline=True, dtype=args.buf,
-                                 block_frames=args.block or 4,
-                                 timing=metrics_out is not None, device=dev)
-    n_samples = 0
     n_emitted = 0
-    carry = b""
-    quantum = 4 * nch          # one sample instant: nch interleaved IQ pairs
+    tagged = args.channels > 1 or args.wideband > 0
 
     def handle(results):
         nonlocal n_emitted
         for c, fb, metric, q, _pos in results:
             n_emitted += 1
             if not args.quiet:
-                if nch > 1:
+                if tagged:
                     print(f"[ch {c}]", file=err)
                 print_frame(n_emitted, fb, metric, q, out=err)
             if args.raw:
                 stdout.write(fb)
                 stdout.flush()
 
-    with _profiled(args.profile_dir, dev):
-        while True:
-            buf = stdin.read(READ_BYTES)
-            if not buf:
-                break
-            buf = carry + buf
-            usable = len(buf) - len(buf) % quantum
-            carry = buf[usable:]
-            # wire-form (C, n, 2) int16 pairs, cast on the engine's device:
-            # no complex samples between stdin and the soft stage
-            x = iq_bytes_to_i16_pairs(buf, channels=nch)
-            n_samples += x.shape[0] * x.shape[1]
-            blocks_before = len(mc.block_stats)
-            handle(mc.feed(x))
-            if metrics_out is not None and \
-                    len(mc.block_stats) > blocks_before:
-                emit_json(locked_metrics(mc, nch, n_samples), metrics_out)
-        handle(mc.flush())
-    if metrics_out is not None:
-        m = locked_metrics(mc, nch, n_samples)
-        m["final"] = True
+    def metrics(engine, channels, n_samples, final=False):
+        m = locked_metrics(engine, channels, n_samples)
+        if final:
+            m["final"] = True
         emit_json(m, metrics_out)
+
+    run = _wideband if args.wideband else _channels
+    with _profiled(args.profile_dir, dev):
+        engine, nch, n_samples = run(args, sys.stdin.buffer, dev, handle,
+                                     None if metrics_out is None else metrics)
+    if metrics_out is not None:
+        metrics(engine, nch, n_samples, final=True)
         if metrics_out is not err:
             metrics_out.close()
     if not args.quiet:
-        summary(mc.decoded, mc.perfect, n_samples / nch / CONFIG.sample_rate,
+        summary(engine.decoded, engine.perfect,
+                n_samples / nch / CONFIG.sample_rate,
                 n_samples // nch // CONFIG.samples_per_symbol, "-", 0.0,
                 out=err)
-    return 0 if mc.decoded > 0 else 1
+    return 0 if engine.decoded > 0 else 1
+
+
+def _channels(args, stdin, dev, handle, metrics):
+    """--channels N: READ_BYTES reads of sample-interleaved channels, each
+    fed to the pipelined engine as an int16 view cast on its device.
+    Returns (engine, channels, samples read over all channels)."""
+    from opv_tpu_torch.io.iq import iq_bytes_to_i16_pairs
+    from opv_tpu_torch.stream import LockedStreamDemodulator
+    nch = max(1, args.channels)
+    # pipelined: block N computes while block N-1's results are fetched and
+    # printed; the tuples are the synchronous engine's
+    mc = LockedStreamDemodulator(channels=nch, pipeline=True, dtype=args.buf,
+                                 block_frames=args.block or 4,
+                                 timing=metrics is not None, device=dev)
+    n_samples = 0
+    carry = b""
+    quantum = 4 * nch          # one sample instant: nch interleaved IQ pairs
+    while True:
+        buf = stdin.read(READ_BYTES)
+        if not buf:
+            break
+        buf = carry + buf
+        usable = len(buf) - len(buf) % quantum
+        carry = buf[usable:]
+        # wire-form (C, n, 2) int16 pairs, cast on the engine's device:
+        # no complex samples between stdin and the soft stage
+        x = iq_bytes_to_i16_pairs(buf, channels=nch)
+        n_samples += x.shape[0] * x.shape[1]
+        blocks_before = len(mc.block_stats)
+        handle(mc.feed(x))
+        if metrics is not None and len(mc.block_stats) > blocks_before:
+            metrics(mc, nch, n_samples)
+    handle(mc.flush())
+    return mc, nch, n_samples
+
+
+def _wideband(args, stdin, dev, handle, metrics):
+    """--wideband K: reads of at least one quantum, copied to the device
+    as int16 and made complex64 there (exact), fed to the pipelined
+    WidebandReceiver in exact quanta; what is left after the last whole
+    quantum is fed at the end.  Returns (the inner engine, K, wideband
+    samples read, which are the channel samples over all K channels)."""
+    import torch
+    from opv_tpu_torch.io.iq import iq_bytes_to_i16_pairs
+    from opv_tpu_torch.stream import WidebandReceiver
+    k = args.wideband
+    wb = WidebandReceiver(k, block_frames=args.block or 2, pipeline=True,
+                          dtype=args.buf, timing=metrics is not None,
+                          device=dev)
+    inner = wb.demod
+    q = wb.quantum
+    qbytes = 4 * q
+
+    def samples(data):
+        iq = inner._to_device(torch.from_numpy(iq_bytes_to_i16_pairs(data)[0]))
+        return torch.complex(iq[:, 0].to(torch.float32),
+                             iq[:, 1].to(torch.float32))
+
+    n_samples = 0
+    carry = b""
+    while True:
+        buf = stdin.read(max(WIDEBAND_READ_BYTES, qbytes))
+        if not buf:
+            break
+        buf = carry + buf
+        nq = len(buf) // qbytes
+        carry = buf[nq * qbytes:]
+        if not nq:
+            continue
+        x = samples(buf[: nq * qbytes])
+        for i in range(nq):
+            n_samples += q
+            blocks_before = len(inner.block_stats)
+            handle(wb.feed(x[i * q:(i + 1) * q]))
+            if metrics is not None and len(inner.block_stats) > blocks_before:
+                metrics(inner, k, n_samples)
+    if len(carry) >= 4:
+        x = samples(carry)
+        n_samples += x.shape[0]
+        handle(wb.feed(x))
+    handle(wb.flush())
+    return inner, k, n_samples
 
 
 if __name__ == "__main__":

@@ -36,8 +36,7 @@ and relaunches N when the resolve proves the predicted program wrong, so
 float buffers emit the synchronous engine's tuples; eager=True serves
 pure-steady blocks as soon as their owned slots are buffered; int8
 buffers adapt their step per channel (AGC); hunt_stride=2 hunts at half
-the dense resolution.  mesh (ROADMAP queue 1, item 12) and the external
-fused ingest of the wideband receiver (item 9) are not ported; mesh
+the dense resolution.  mesh (ROADMAP queue 1, item 12) is not ported and
 raises NotImplementedError.
 
 On a CUDA device every block's outputs are copied to pinned host memory

@@ -1,10 +1,12 @@
 """Checkpoint/resume of the streaming engine's state.
 
-The state is a flat dict (LockedStreamDemodulator.state_tree).  Its leaves
-are stored in the JAX package's layout (opv_tpu/stream/state.py): one
-.npz holding `n_leaves` and `leaf_{i}`, the leaves in the order
-jax.tree.flatten gives a dict, which is by sorted key.  A checkpoint
-written by either package therefore loads in the other.
+The state is a dict of leaves (LockedStreamDemodulator.state_tree), or of
+leaves and such dicts (WidebandReceiver.state_tree nests the engine's
+under "demod").  Its leaves are stored in the JAX package's layout
+(opv_tpu/stream/state.py): one .npz holding `n_leaves` and `leaf_{i}`,
+the leaves in the order jax.tree.flatten gives a dict, which is by sorted
+key, depth first.  A checkpoint written by either package therefore loads
+in the other.
 
 Tensors are stored as numpy arrays; bfloat16 tensors widened to float32
 (exact), since numpy has no bfloat16.  Both engines cast a float32 buffer
@@ -22,13 +24,27 @@ def _norm(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def _keys(tree) -> list:
+def _paths(tree, prefix=()) -> list:
+    """The key path of every leaf, in jax.tree.flatten's order."""
     if not isinstance(tree, dict):
-        raise TypeError(f"state must be a flat dict, got {type(tree).__name__}")
-    nested = [k for k, v in tree.items() if isinstance(v, (dict, list, tuple))]
-    if nested:
-        raise TypeError(f"state must be a flat dict; nested entries {nested}")
-    return sorted(tree)
+        raise TypeError(f"state must be a dict, got {type(tree).__name__}")
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _paths(v, prefix + (k,))
+        elif isinstance(v, (list, tuple)):
+            raise TypeError(f"state entry {prefix + (k,)} is a "
+                            f"{type(v).__name__}; only dicts nest")
+        else:
+            out.append(prefix + (k,))
+    return out
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def to_host(x) -> np.ndarray:
@@ -44,18 +60,24 @@ def to_host(x) -> np.ndarray:
 
 
 def save_state(path: str, tree: dict) -> None:
-    leaves = [to_host(tree[k]) for k in _keys(tree)]
+    leaves = [to_host(_get(tree, p)) for p in _paths(tree)]
     np.savez(_norm(path), n_leaves=np.int64(len(leaves)),
              **{f"leaf_{i}": x for i, x in enumerate(leaves)})
 
 
 def load_state(path: str, like: dict) -> dict:
     """Restore a state saved with save_state (by either package), using
-    `like` (a state of the same engine layout) for the keys."""
-    keys = _keys(like)
+    `like` (a state of the same layout) for its structure."""
+    paths = _paths(like)
     with np.load(_norm(path)) as data:
-        if int(data["n_leaves"]) != len(keys):
+        if int(data["n_leaves"]) != len(paths):
             raise ValueError(
                 f"checkpoint has {int(data['n_leaves'])} leaves but the "
-                f"target structure has {len(keys)} — wrong `like` template?")
-        return {k: data[f"leaf_{i}"] for i, k in enumerate(keys)}
+                f"target structure has {len(paths)} — wrong `like` template?")
+        out: dict = {}
+        for i, p in enumerate(paths):
+            node = out
+            for k in p[:-1]:
+                node = node.setdefault(k, {})
+            node[p[-1]] = data[f"leaf_{i}"]
+        return out

@@ -1,0 +1,175 @@
+"""Wideband receiver: one digitizer stream in, decoded frames from every
+OPV channel out (counterpart of opv_tpu/stream/wideband.py).
+
+The analysis channelizer (rx/channelizer.py) feeds the locked streaming
+engine (stream/locked.py).  Feed blocks of wideband IQ at K x 2.168
+Msamples/s; get (channel, frame_bytes, metric, sync_quality,
+abs_channel_sample_pos) tuples.  The filter history is carried across
+feeds, so channelization is streaming-exact.
+
+The wideband window (K*taps - 1 samples of filter history plus one
+processing quantum) lives on the engine's device; so do the channelizer's
+(K, M) output and the engine's window rows.  Only the digitizer's samples
+go to the card and only the decoded frames come back.
+
+Every feed goes through one append / channelize / slide loop; a steady
+quantum (exactly one quantum into a primed window) is one pass of it: one
+channelize call and one engine feed.  The JAX receiver gives that case a
+path of its own, which fuses the channelizer with the engine's row append
+into one jitted dispatch (its external-ingest API); run eagerly, the
+fusion would be channelize, then feed(), which is what the loop does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from opv_tpu_torch.config import CONFIG
+from opv_tpu_torch.rx.channelizer import channelize
+from opv_tpu_torch.stream.locked import LockedStreamDemodulator
+
+
+class WidebandReceiver:
+    def __init__(self, k: int, block_frames: int = 4,
+                 taps_per_branch: int = 12, engine: str = "locked",
+                 quantum_out: int | None = None, pipeline: bool = False,
+                 dtype: str = "auto", timing: bool = False, mesh=None,
+                 hunt_stride: int = 1, device="cuda"):
+        """k channels of a K x 2.168 Msamples/s stream.  block_frames,
+        pipeline, dtype ("auto" is float32, as in the engine), timing and
+        hunt_stride go to the inner LockedStreamDemodulator; device= is
+        where it and the wideband window live ("cuda" by default, which
+        raises without a card; "cpu" runs the plain twins).
+
+        quantum_out: channel samples per channelizer call (default: the
+        engine's block advance, so a steady block takes one call).  It
+        must divide the advance for the steady path to repeat.
+
+        engine="fast" (MultiChannelDemodulator, ROADMAP queue 1 item 10)
+        and mesh= (item 12) are not ported and raise NotImplementedError."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (the channel-sharded wideband receiver) is not "
+                "ported yet (ROADMAP queue 1, item 12)")
+        if engine == "fast":
+            raise NotImplementedError(
+                "engine='fast' (MultiChannelDemodulator) is not ported yet "
+                "(ROADMAP queue 1, item 10)")
+        if engine != "locked":
+            raise ValueError("engine must be 'locked' or 'fast'")
+        self.demod = LockedStreamDemodulator(channels=k,
+                                             block_frames=block_frames,
+                                             pipeline=pipeline, dtype=dtype,
+                                             timing=timing,
+                                             hunt_stride=hunt_stride,
+                                             device=device)
+        self.device = self.demod.device
+        self.k = k
+        self.taps = taps_per_branch
+        self._hist = k * taps_per_branch - 1         # filter history
+        if quantum_out is None:
+            quantum_out = block_frames * CONFIG.samples_per_frame
+        self._quantum = k * quantum_out              # wideband samples
+        self.window = self._hist + self._quantum
+        self._buf = self._zeros()
+        self._count = 0                              # valid samples in _buf
+
+    @property
+    def quantum(self) -> int:
+        """Wideband samples of one steady feed."""
+        return self._quantum
+
+    def _zeros(self) -> torch.Tensor:
+        return torch.zeros(self.window, dtype=torch.complex64,
+                           device=self.device)
+
+    def _put(self, wideband) -> torch.Tensor:
+        """(n,) complex (numpy or tensor) -> complex64 on the device; a host
+        array through the engine's pinned staging."""
+        if isinstance(wideband, torch.Tensor):
+            x = wideband.to(torch.complex64)
+        else:
+            x = torch.from_numpy(np.asarray(wideband, np.complex64))
+        return self.demod._to_device(x)
+
+    def _slide(self) -> None:
+        """Keep the filter history at the front of a new window (a new
+        buffer, zero beyond it)."""
+        buf = self._zeros()
+        buf[: self._hist] = self._buf[self._quantum:]
+        self._buf = buf
+
+    def feed(self, wideband):
+        """wideband: (n,) complex at K*fs_ch, numpy or tensor, cast to
+        complex64.  Returns decoded-frame tuples (channel, frame_bytes,
+        metric, sync_quality, abs_sample_pos), positions in channel-rate
+        samples."""
+        x = self._put(wideband)
+        n = x.shape[0]
+        out = []
+        off = 0
+        while off < n:
+            take = min(self.window - self._count, n - off)
+            self._buf[self._count:self._count + take] = x[off:off + take]
+            self._count += take
+            off += take
+            if self._count >= self.window:
+                out.extend(self.demod.feed(channelize(self._buf, self.k,
+                                                      self.taps)))
+                self._slide()
+                self._count = self._hist
+        return out
+
+    def flush(self):
+        """Channelize the buffered tail (whole output samples only), then
+        flush the engine."""
+        h = self._hist
+        results = []
+        if self._count >= h + self.k:
+            usable = h + ((self._count - h) // self.k) * self.k
+            results.extend(self.demod.feed(
+                channelize(self._buf[:usable], self.k, self.taps)))
+        self._buf = self._zeros()
+        self._count = 0
+        results.extend(self.demod.flush())
+        return results
+
+    # ------------------------------------------------------------------ #
+    # checkpoint/resume (stream/state.py): the filter-history window plus
+    # the engine's state, in the JAX package's layout, so checkpoints cross
+    # between the packages both ways
+
+    def state_tree(self) -> dict:
+        """{buf: the (window,) complex64 wideband window (a copy on the
+        device), count, demod: the engine's state_tree()}.  Raises while a
+        pipelined block is in flight."""
+        return dict(buf=self._buf.clone(), count=np.int64(self._count),
+                    demod=self.demod.state_tree())
+
+    def load_state_tree(self, tree) -> None:
+        """Adopt a state_tree() of either package (e.g. via load_state)."""
+        buf = tree["buf"]
+        buf = (buf if isinstance(buf, torch.Tensor)
+               else torch.from_numpy(np.asarray(buf, np.complex64)))
+        if tuple(buf.shape) != (self.window,):
+            raise ValueError(
+                f"checkpoint window {tuple(buf.shape)} does not match this "
+                f"receiver's geometry ({self.window},): same k, "
+                f"taps_per_branch and quantum required")
+        self._buf = buf.to(self.device, torch.complex64, copy=True)
+        self._count = int(tree["count"])
+        self.demod.load_state_tree(tree["demod"])
+
+    def stats(self) -> dict:
+        """The engine's per-block timing and lifecycle stats (timing=True):
+        device wait against host lifecycle per resolved block."""
+        return self.demod.stats()
+
+    @property
+    def decoded(self) -> int:
+        return self.demod.decoded
+
+    @property
+    def perfect(self) -> int:
+        return self.demod.perfect

@@ -1,7 +1,7 @@
 """The port's opv-demod (opv_tpu_torch.cli.opv_demod) on the CPU: -s --fast
 round trips, the golden captures decoded exactly as the JAX package's
 pipelined engine decodes them when fed the CLI's 1 MiB reads, metrics,
-profile, and the exit codes of the paths not ported yet."""
+profile, --wideband, and the exit codes of the paths not ported yet."""
 
 import json
 import pathlib
@@ -129,7 +129,6 @@ def test_help_and_empty_input():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-s", "--fast", "--wideband", "4"], "item 9"),
     (["--fast"], "item 10"),
     (["-s"], "item 11"),
     ([], "item 11"),
@@ -138,6 +137,66 @@ def test_help_and_empty_input():
 def test_unported_paths_exit_2(argv, item):
     rc, out, err = run_main(opv_demod.main, argv + CPU, b"\0" * 4000)
     assert rc == 2 and out == b"" and item in err and "not ported" in err
+
+
+@pytest.fixture(scope="module")
+def wideband4():
+    """tests/test_cli.py's --wideband 4 signal: two carriers (channels 0
+    and 2, 4 frames each) scaled by 0.45 to stay inside int16, as wire
+    bytes; and the transmitted frames."""
+    from test_channelizer import msk_wideband, synthesize_wideband
+    from opv_tpu.core import build_bert_frame
+    k = 4
+    sets = {0: np.asarray(build_bert_frame("W5NYV", frame_num=np.arange(4))),
+            2: np.asarray(build_bert_frame("TEST", frame_num=np.arange(4)))}
+    lead = np.zeros(2000 * k, np.complex128)
+    wb = {c: np.concatenate([lead, msk_wideband(f, k)])
+          for c, f in sets.items()}
+    n = max(map(len, wb.values()))
+    x = synthesize_wideband(wb, k, n) * 0.45
+    wire = np.empty((n, 2), dtype="<i2")
+    wire[:, 0] = np.clip(np.round(x.real), -32768, 32767)
+    wire[:, 1] = np.clip(np.round(x.imag), -32768, 32767)
+    return k, wire.tobytes(), [bytes(f) for fs in sets.values() for f in fs]
+
+
+def test_wideband_decodes_every_frame(wideband4, tmp_path):
+    """-s --fast --wideband 4 -r: the frame set is the transmitted frames
+    and the port's WidebandReceiver's output on the same reads (pipelined,
+    block_frames 2, exact quanta, the tail at the end); frames are tagged
+    [ch N]; the final metrics line counts channel samples per channel."""
+    from opv_tpu_torch.io.iq import iq_bytes_to_complex
+    from opv_tpu_torch.stream import WidebandReceiver
+    k, wire, want = wideband4
+    path = tmp_path / "m.jsonl"
+    rc, out, err = _demod(["-r", "--wideband", str(k), "--metrics",
+                           str(path)], wire)
+    assert rc == 0, err[-2000:]
+    assert sorted(_split(out)) == sorted(want)
+    wb = WidebandReceiver(k, block_frames=2, pipeline=True, device="cpu")
+    x = iq_bytes_to_complex(wire)
+    q = wb.quantum
+    assert opv_demod.WIDEBAND_READ_BYTES >= len(wire)     # one read
+    ref = []
+    for off in range(0, len(x) - q + 1, q):
+        ref += wb.feed(x[off:off + q])
+    ref += wb.feed(x[len(x) // q * q:]) + wb.flush()
+    assert out == b"".join(r[1] for r in ref)
+    assert err.count("[ch 0]") == 4 and err.count("[ch 2]") == 4
+    assert "Summary: 8 frames (8 perfect, 0 errors)" in err
+    final = json.loads(path.read_text().splitlines()[-1])
+    assert final["final"] and final["decoded"] == 8 and final["channels"] == k
+    assert final["samples_per_chan"] == len(x) // k
+
+
+@pytest.mark.parametrize("argv", [
+    ["-s", "--fast", "--wideband", "4", "--channels", "2"],
+    ["-s", "--wideband", "4"],
+    ["--fast", "--wideband", "4"],
+])
+def test_wideband_usage_errors_exit_2(argv):
+    rc, out, err = run_main(opv_demod.main, argv + CPU, b"\0" * 4000)
+    assert rc == 2 and out == b"" and "--wideband" in err
 
 
 def test_default_device_needs_a_card(four):

@@ -15,9 +15,10 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from chip_smoke import (MODES_WEAK_GAIN, hold_stream_kernels,  # noqa: E402
-                        impaired_feed, same_stream, serve_eager, spy_kernels,
-                        stream_twin_checks, viterbi_inputs)
+from chip_smoke import (MODES_WEAK_GAIN, drive_wideband,  # noqa: E402
+                        hold_stream_kernels, impaired_feed, k4_chunks,
+                        same_stream, same_wideband, serve_eager, spy_kernels,
+                        stream_twin_checks, viterbi_inputs, wideband_k4)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
 from opv_tpu_torch.ops import registry  # noqa: E402
@@ -361,3 +362,34 @@ def test_exact_modulator_on_card_equals_reference_capture(cuda_dev):
     b, st_b = modulate_frames(enc[1:], st_a, exact=True)
     assert torch.equal(torch.cat([a, b]), iq)
     assert float(st_b.phase_f1) == float(st.phase_f1)
+
+
+@pytest.mark.parametrize("k", [4, 64])
+def test_channelize_on_card_matches_cpu(cuda_dev, k):
+    """The channelizer on the card against the host: within 1e-5 of max|y|
+    (the float64 DFT product makes them agree far closer)."""
+    from opv_tpu_torch.rx.channelizer import channelize
+    rng = np.random.default_rng(k)
+    n = k * 12 * 4000 + 3 * k + 1
+    x = torch.from_numpy(((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                          * 8000).astype(np.complex64))
+    want = channelize(x, k)
+    got = channelize(x.to(cuda_dev), k)
+    assert got.is_cuda and got.shape == want.shape and got.is_contiguous()
+    assert float((got.cpu() - want).abs().max()) <= RTOL * float(want.abs().max())
+
+
+def test_wideband_receiver_on_card_matches_cpu(cuda_dev):
+    """tests/test_wideband.py::test_streaming_decode's K = 4 signal through
+    the WidebandReceiver on the card and on the host, ragged feeds: the
+    same tuples (leakage on the quiet channels within same_wideband's
+    bound), every frame of channels 0 and 2."""
+    from opv_tpu_torch.stream import WidebandReceiver
+    x, frames = wideband_k4()
+    runs = [drive_wideband(WidebandReceiver(4, block_frames=3, device=dev), x,
+                           chunks=k4_chunks(x.shape[0]))
+            for dev in (cuda_dev, torch.device("cpu"))]
+    same_wideband(runs[0], runs[1], frames, "wideband K=4 card vs cpu")
+    for c in (0, 2):
+        assert {r[1] for r in runs[0] if r[0] == c and r[2] <= 16} \
+            == set(frames[c])

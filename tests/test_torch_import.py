@@ -17,12 +17,14 @@ MODULES = [
     "opv_tpu_torch.core.convcode",
     "opv_tpu_torch.core.framing",
     "opv_tpu_torch.tx.modulator",
+    "opv_tpu_torch.tx.multiplexer",
     "opv_tpu_torch.rx.sync",
     "opv_tpu_torch.rx.viterbi",
     "opv_tpu_torch.rx.frame_decoder",
     "opv_tpu_torch.rx.cfo",
     "opv_tpu_torch.rx.fast",
     "opv_tpu_torch.rx.locked",
+    "opv_tpu_torch.rx.channelizer",
     "opv_tpu_torch.ops.build",
     "opv_tpu_torch.ops.viterbi",
     "opv_tpu_torch.ops.symbol_soft",
@@ -31,6 +33,7 @@ MODULES = [
     "opv_tpu_torch.stream",
     "opv_tpu_torch.stream.locked",
     "opv_tpu_torch.stream.state",
+    "opv_tpu_torch.stream.wideband",
     "opv_tpu_torch.entry",
     "opv_tpu_torch.io",
     "opv_tpu_torch.io.iq",
