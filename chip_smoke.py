@@ -106,11 +106,38 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               set_sync_debug_mode("error")); (h) opv_demod -s --fast
               --wideband 64 -r -q in this process on (b)'s signal as int16
               wire bytes: its receiver's frames, Msamples/s
- 11. the kernels JSON line (launches: the main path's, for phase_track the
-     cli phase's opv_mod runs; launches_stream: the stream phase's two
-     runs; launches_modes: the two pipelined runs of the modes phase;
+ 11. tracking the reference-parity tracking receiver (float64 AFC/TED loop
+              and sync state machine): (a) the track_symbols kernel against
+              its twin on one chunk per channel of the golden captures
+              bert3, cfo500, awgn10, awgn7, awgn8, dropout, drift (channel
+              c: capture c % 7, from its CFO estimate) at C = 1 and 64:
+              n_sym, samples_used and sym_valid equal, soft and the state
+              within TRACK_RTOL; sync_scan bit for bit on the card's
+              raw/norm and on a stress input reaching every transition;
+              both timed against the chunk's 40 ms of air and their bounds;
+              (b) rx_batch on the card: bert3.frames and raw3.bin byte for
+              byte; StreamingDemodulator on the card: the nine golden
+              checks of tests/test_streaming.py, every tuple equal to the
+              same receiver on the host (run in worker processes); (c)
+              tracking-64: MultiChannelTrackingDemodulator(channels=64)
+              over the golden mix, channel c delayed by (c // 7) x 487
+              zeros and padded to the longest, fed a chunk at a time: each
+              channel equal to a single-channel StreamingDemodulator on the
+              card, channels 0-6 the reference's frames; host ms per
+              chunk, Msamples/s, the multiple of real time, the kernels'
+              device ms per chunk (torch.profiler), peak memory; (d)
+              opv_demod batch -r -q (bert3, raw3) and -s -r -q (awgn8,
+              dropout) in this process against the goldens, -s on bert3
+              with the reference's five transition lines, and opv_modem -l
+              without --fast as a process: echo p50/p95 beside phase 9's
+              --fast numbers
+ 12. the kernels JSON line (launches: the main path's, for phase_track the
+     cli phase's opv_mod runs, for track_symbols and sync_scan the
+     tracking phase's; launches_stream: the stream phase's two runs;
+     launches_modes: the two pipelined runs of the modes phase;
      launches_cli: the cli phase's in-process runs; launches_wideband: the
-     wideband phase's runs (b)-(e)), the card line, then the result line
+     wideband phase's runs (b)-(e); launches_tracking: the tracking
+     phase's (b)-(d)), the card line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 There is no CPU fallback: without a CUDA device it exits non-zero and
@@ -225,6 +252,47 @@ WB_PERIOD_FRAMES = 8
 WB_WARM_QUANTA = 5
 WB_TIMED_QUANTA = 12
 WB_CLI_BLOCK = 2
+#: the tracking phase (the reference-parity receiver): channel c of its
+#: feeds carries golden capture c % 7 of TRACK_CAPTURES; (c) delays channel
+#: c by (c // 7) * TRACK_LEAD_STEP leading zero samples
+TRACK_CAPTURES = ("bert3", "cfo500", "awgn10", "awgn7", "awgn8", "dropout",
+                  "drift")
+TRACK_CHANNELS = 64
+TRACK_LEAD_STEP = 487
+#: track_symbols on the card against its twin: soft and every state column
+#: within TRACK_RTOL x max(1, max|twin|) (phases compared modulo 2 pi).
+#: sincos and atan2 differ from the host's libm by an ulp or two and the
+#: warp sums the 40 taps in another order; the loops are stable, so the
+#: two trajectories stay ~1e-14 apart (the kernel's C++ run on the host
+#: against the twin: 2.4e-15 of max|soft|); n_sym, samples_used and
+#: sym_valid must be equal
+TRACK_RTOL = 1e-9
+#: a frame's sync quality, card against cpu and one channel of (c) against
+#: its single-channel run: within this (a ratio of sums of the soft values
+#: above); bytes, metric and symbol index must be equal
+TRACK_Q_TOL = 1e-9
+TRACK_REPS = 5
+#: the nine golden checks of tests/test_streaming.py: capture, the
+#: reference's frames, StreamingDemodulator options
+TRACK_GOLDENS = (("bert3", "bert3.frames", {}),
+                 ("cfo500", "cfo500.frames", {}),
+                 ("awgn10", "awgn10.frames", {}),
+                 ("awgn7", "awgn7.frames", {}),
+                 ("awgn8", "awgn8.frames", {}),
+                 ("dropout", "dropout.frames", {}),
+                 ("drift", "drift.frames", {}),
+                 ("cfo500", "cfo500_a01.frames", {"afc_alpha": 0.01}),
+                 ("cfo500", "cfo500_o500.frames", {"init_offset": 500.0}))
+#: float64 operations per tap and symbol of track_symbols: three linear
+#: interpolations (8 each), two LO arguments (2 each), six complex
+#: multiply-adds (8 each) and two sincos (TRACK_SINCOS_OPS each); per
+#: symbol: the 12-value warp reduction (5 adds each) and ~60 of scalar update
+TRACK_SINCOS_OPS = 20
+TRACK_OPS_PER_TAP = 3 * 8 + 2 * 2 + 6 * 8 + 2 * TRACK_SINCOS_OPS
+TRACK_OPS_PER_SYMBOL = 40 * TRACK_OPS_PER_TAP + 12 * 5 + 60
+#: int32 operations per symbol of sync_scan's state machine (adds,
+#: compares, selects)
+SYNC_OPS_PER_SYMBOL = 30
 
 
 def log(msg: str) -> None:
@@ -1448,6 +1516,46 @@ def stop(proc) -> bytes:
     return out or b""
 
 
+def modem_echo(argv, frames):
+    """Frames sent to opv_modem `argv` (a process) a frame's time apart
+    after CLI_ECHO_WARM of warm-up: (echoes, the first one's ms, sorted
+    echo ms after the warm-up).  The last frame stays in the modem (its
+    tail waits for the next frame's samples)."""
+    import socket
+    proc, port = start_modem(argv)
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    sent_at, back = {}, []
+
+    def paced(batch, until):
+        s.settimeout(0.002)
+        t_next = time.perf_counter()
+        for f in batch:
+            sent_at[f] = time.perf_counter()
+            s.sendto(f, ("127.0.0.1", port))
+            t_next += CLI_PACING_S
+            while time.perf_counter() < t_next:
+                try:
+                    back.append((s.recvfrom(4096)[0], time.perf_counter()))
+                except socket.timeout:
+                    pass
+        s.settimeout(60)
+        while len(back) < until:
+            back.append((s.recvfrom(4096)[0], time.perf_counter()))
+    try:
+        paced(frames[:CLI_ECHO_WARM], CLI_ECHO_WARM - 1)
+        paced(frames[CLI_ECHO_WARM:], len(frames) - 1)
+    finally:
+        stop(proc)
+        s.close()
+    if [b for b, _ in back] != frames[:len(back)]:
+        raise AssertionError(f"opv_modem {argv}: echoed frames are not the "
+                             "frames sent, in order")
+    cold = (back[0][1] - sent_at[back[0][0]]) * 1e3
+    lat = sorted((t - sent_at[b]) * 1e3 for b, t in back[CLI_ECHO_WARM:])
+    return len(back), cold, lat
+
+
 def cli_processes(x, card):
     """opv_demod at 1 channel with no --device, and opv_modem -R --fast,
     -l --fast and -t -o, each as its own process."""
@@ -1487,39 +1595,7 @@ def cli_processes(x, card):
     # kernels and for acquisition), then the timed frames
     frames = [bytes(f) for f in build_bert_frame(
         "W5NYV", frame_num=np.arange(CLI_ECHO_WARM + CLI_ECHO_FRAMES))]
-    proc, port = start_modem(["-l", "--fast"])
-    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-    s.bind(("127.0.0.1", 0))
-    sent_at, back = {}, []
-
-    def paced(batch, until):
-        """Send `batch` a frame's time apart, collecting echoes, then wait
-        until `until` echoes are back."""
-        s.settimeout(0.002)
-        t_next = time.perf_counter()
-        for f in batch:
-            sent_at[f] = time.perf_counter()
-            s.sendto(f, ("127.0.0.1", port))
-            t_next += CLI_PACING_S
-            while time.perf_counter() < t_next:
-                try:
-                    back.append((s.recvfrom(4096)[0], time.perf_counter()))
-                except socket.timeout:
-                    pass
-        s.settimeout(60)
-        while len(back) < until:
-            back.append((s.recvfrom(4096)[0], time.perf_counter()))
-    try:
-        paced(frames[:CLI_ECHO_WARM], CLI_ECHO_WARM - 1)
-        paced(frames[CLI_ECHO_WARM:], len(frames) - 1)
-    finally:
-        stop(proc)
-        s.close()
-    if [b for b, _ in back] != frames[:len(back)]:
-        raise AssertionError("[cli] opv_modem -l --fast: echoed frames are "
-                             "not the frames sent, in order")
-    cold = (back[0][1] - sent_at[back[0][0]]) * 1e3
-    lat = sorted((t - sent_at[b]) * 1e3 for b, t in back[CLI_ECHO_WARM:])
+    n_back, cold, lat = modem_echo(["-l", "--fast"], frames)
     p50, p95 = lat[len(lat) // 2], lat[int(0.95 * (len(lat) - 1))]
     # 4. -t -o: stdout, tee and the exact modulation of two frames
     with tempfile.TemporaryDirectory() as tmp:
@@ -1549,13 +1625,13 @@ def cli_processes(x, card):
     log(f"[cli] processes: opv_demod -s --fast -r -q with no --device decoded "
         f"{FRAMES}/{FRAMES} frames byte-exact in {demod_s:.1f} s (process "
         f"start included); opv_modem -R --fast delivered bert3's 3 frames; "
-        f"-l --fast echoed {len(back)}/{len(frames)} frames sent every "
+        f"-l --fast echoed {n_back}/{len(frames)} frames sent every "
         f"{CLI_PACING_S * 1e3:.0f} ms byte-equal: the first {cold:.1f} ms "
         f"after it was sent, then over {len(lat)} frames after "
         f"{CLI_ECHO_WARM} of warm-up echo latency p50 {p50:.2f} ms p95 "
         f"{p95:.2f} ms (host clock); -t -o stdout == tee == the exact "
         f"modulation of 2 frames ({card})")
-    return dict(default_device_demod_s=demod_s, echo_frames=len(back),
+    return dict(default_device_demod_s=demod_s, echo_frames=n_back,
                 echo_first_ms=cold, echo_p50_ms=p50, echo_p95_ms=p95,
                 echo_ms=lat)
 
@@ -2064,6 +2140,445 @@ def phase_wideband(dev, card):
     return dict(launches=launches, kernels=kernels, **res)
 
 
+def capture(name: str) -> np.ndarray:
+    """A golden capture (tests/golden/NAME.iq) as complex128 samples."""
+    raw = np.frombuffer(golden(f"{name}.iq"), "<i2").reshape(-1, 2)
+    return raw[:, 0].astype(np.float64) + 1j * raw[:, 1]
+
+
+def golden_frames(name: str) -> list:
+    data = golden(name)
+    return [data[i:i + 134] for i in range(0, len(data), 134)]
+
+
+def track_inputs(channels: int, dev):
+    """The inputs of one chunk of a StreamingDemodulator's first call, per
+    channel: (samples (C, 86,720) complex128, n_valid (C,) int32, state
+    (C, 9) float64) on dev.  Channel c holds the first chunk of capture
+    c % 7 of TRACK_CAPTURES, its loop state fresh at the capture's CFO
+    estimate (the single-channel estimate, as the first chunk runs it)."""
+    import torch
+    from opv_tpu_torch.rx.cfo import estimate_cfo
+    from opv_tpu_torch.rx.demod import loop_state_init, pack_state
+    first = [torch.from_numpy(capture(n)[:SPF]).to(dev) for n in TRACK_CAPTURES]
+    offs = [estimate_cfo(x) for x in first]
+    pick = [c % len(first) for c in range(channels)]
+    x = torch.stack([first[i] for i in pick])
+    state = pack_state(loop_state_init(torch.stack([offs[i] for i in pick]),
+                                       channels=channels, device=dev))
+    nv = torch.full((channels,), SPF, dtype=torch.int32, device=dev)
+    return x, nv, state
+
+
+def hold_track(x, nv, state, what: str):
+    """track_symbols on the card against its twin (on the host) on the same
+    inputs: n_sym, samples_used and sym_valid equal, soft and the state
+    within TRACK_RTOL.  Returns (the kernel's outputs, the largest soft
+    difference, the twin's host ms)."""
+    import torch
+    from opv_tpu_torch.config import CONFIG
+    from opv_tpu_torch.ops import track_symbols as ts
+    from opv_tpu_torch.rx.demod import max_symbols
+    maxs = max_symbols(x.shape[1])
+    got = ts.track_symbols_cuda(x, nv, state, CONFIG.afc_alpha, maxs)
+    t0 = time.perf_counter()
+    want = ts.track_symbols_reference(x.cpu(), nv.cpu(), state.cpu(),
+                                      CONFIG.afc_alpha, maxs)
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    soft, valid, st, used = (t.cpu() for t in got)
+    if not (torch.equal(valid, want[1]) and torch.equal(used, want[3])):
+        raise AssertionError(
+            f"[tracking] {what}: track_symbols n_sym {valid.sum(1).tolist()} "
+            f"samples_used {used.tolist()} != twin "
+            f"{want[1].sum(1).tolist()} {want[3].tolist()}")
+    err = float((soft - want[0]).abs().max())
+    if err > TRACK_RTOL * max(1.0, float(want[0].abs().max())):
+        raise AssertionError(f"[tracking] {what}: track_symbols soft differs "
+                             f"from the twin by {err:.3e}")
+    d = (st - want[2]).abs()
+    d[:, 1:3] = torch.remainder(st[:, 1:3] - want[2][:, 1:3] + np.pi,
+                                2 * np.pi).sub(np.pi).abs()
+    scale = want[2].abs().amax(0).clamp(min=1.0)
+    if bool((d > TRACK_RTOL * scale).any()):
+        raise AssertionError(f"[tracking] {what}: track_symbols state differs "
+                             f"from the twin by {d.amax(0).tolist()}")
+    return got, err, twin_ms
+
+
+def hold_sync(raw, norm, valid, ints, q, what: str):
+    """sync_scan on the card against its twin, every output bit for bit.
+    Returns (the kernel's outputs, the twin's host ms)."""
+    import torch
+    from opv_tpu_torch.ops import sync_scan as sc
+    got = sc.sync_scan_cuda(raw, norm, valid, ints, q)
+    t0 = time.perf_counter()
+    want = sc.sync_scan_reference(raw.cpu(), norm.cpu(), valid.cpu(),
+                                  ints.cpu(), q.cpu())
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    names = ("ints", "sync_q", "ready", "q", "events", "ev_misses",
+             "ev_frames")
+    bad = [n for n, a, b in zip(names, got, want) if not torch.equal(a.cpu(), b)]
+    if bad:
+        raise AssertionError(f"[tracking] {what}: sync_scan differs from the "
+                             f"twin in {bad}")
+    return got, twin_ms
+
+
+def sync_stress(channels: int, steps: int, dev):
+    """sync_scan inputs that reach every transition: raw/norm drawn from
+    values on either side of each threshold, channels starting in each
+    state (and near the 2^30 total cap; every 6th one LOCKED on its 4th
+    miss with a weak sync ahead, so it loses lock), every 7th symbol
+    invalid."""
+    import torch
+    rng = np.random.default_rng(5)
+    raw = rng.choice([0.0, 4999.0, 5000.0, 6.0e12], (channels, steps))
+    norm = rng.choice([0.5, 0.7, 0.75, 0.85, 1.0], (channels, steps),
+                      p=[0.3, 0.05, 0.3, 0.05, 0.3])
+    valid = (np.arange(steps) % 7 != 6)[None].repeat(channels, 0)
+    ints = np.zeros((channels, 6), np.int32)
+    ints[:, 0] = np.arange(channels) % 3
+    ints[:, 1] = rng.integers(0, 2168, channels)
+    ints[:, 2] = rng.integers(0, 5, channels)
+    # every 6th channel LOCKED on its last miss, its next check a miss
+    lose = np.arange(channels) % 6 == 2
+    ints[lose, 2] = 4
+    norm[lose] = 0.5
+    ints[:, 3] = np.arange(channels) % 2
+    ints[:, 4] = np.where(np.arange(channels) % 5 == 0, (1 << 30) - 3, 100)
+    f64 = dict(dtype=torch.float64, device=dev)
+    return (torch.tensor(raw, **f64), torch.tensor(norm, **f64),
+            torch.tensor(valid, device=dev), torch.tensor(ints, device=dev),
+            torch.zeros(channels, **f64))
+
+
+def track_bound(nsym: int, n_samples: int, channels: int, maxs: int):
+    """(bound ms, what bounds it) of track_symbols: the n_valid samples
+    read once (16 B), the state in and out, soft and sym_valid written
+    (9 B a slot), against TRACK_OPS_PER_SYMBOL float64 operations for each
+    symbol this run's data produced."""
+    nbytes = n_samples * 16 + channels * (2 * 9 * 8 + 4 + 4) + \
+        channels * maxs * 9
+    return bound(nbytes, nsym * TRACK_OPS_PER_SYMBOL, PEAK_OPS_PER_S["f64"])
+
+
+def sync_bound(channels: int, steps: int, int_ops_per_s: float):
+    """(bound ms, what bounds it) of sync_scan: raw, norm and valid read
+    once (17 B a symbol), ready, q, events, misses and frames written
+    (21 B), against SYNC_OPS_PER_SYMBOL int32 operations a symbol."""
+    return bound(channels * steps * 38 + channels * 2 * (6 * 4 + 8),
+                 channels * steps * SYNC_OPS_PER_SYMBOL, int_ops_per_s)
+
+
+def tracking_kernels(dev, card, int_ops_per_s: float):
+    """(a) track_symbols and sync_scan against their twins at C = 1 and
+    C = TRACK_CHANNELS on one chunk of the golden mix, and their times."""
+    import torch
+    from opv_tpu_torch.config import CONFIG
+    from opv_tpu_torch.ops import sync_scan as sc
+    from opv_tpu_torch.ops import track_symbols as ts
+    from opv_tpu_torch.rx.demod import max_symbols
+    from opv_tpu_torch.rx.sync import sync_correlate
+    eb = CONFIG.encoded_bits
+    maxs = max_symbols(SPF)
+    rows = {}
+    for c in (1, TRACK_CHANNELS):
+        x, nv, state = track_inputs(c, dev)
+        (soft, valid, _, _), err, twin_ms = hold_track(x, nv, state, f"C={c}")
+        ms = cuda_ms(lambda: ts.track_symbols_cuda(x, nv, state,
+                                                   CONFIG.afc_alpha, maxs),
+                     TRACK_REPS)
+        nsym = int(valid.sum())
+        bound_ms, bound_by = track_bound(nsym, int(nv.sum()), c, maxs)
+        # sync_scan on the card's soft, from a zero history and HUNTING
+        hist = torch.zeros((c, eb), dtype=torch.float64, device=dev)
+        raw, norm = sync_correlate(torch.cat([hist, soft], 1)[:, eb - 23:])
+        ints = torch.zeros((c, 6), dtype=torch.int32, device=dev)
+        q0 = torch.zeros(c, dtype=torch.float64, device=dev)
+        (_, _, ready, _, events, _, _), sync_twin_ms = hold_sync(
+            raw, norm, valid, ints, q0, f"C={c}")
+        sync_ms = cuda_ms(lambda: sc.sync_scan_cuda(raw, norm, valid, ints,
+                                                    q0), TRACK_REPS)
+        s_bound, s_by = sync_bound(c, maxs, int_ops_per_s)
+        rows[c] = dict(
+            track_symbols=dict(ms=ms, plain_ms=twin_ms, max_abs_err=err,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               roofline=bound_ms / ms, library_ms=None,
+                               symbols=nsym),
+            sync_scan=dict(ms=sync_ms, plain_ms=sync_twin_ms, max_abs_err=0.0,
+                           bound_ms=s_bound, bound_by=s_by,
+                           roofline=s_bound / sync_ms, library_ms=None))
+        air_ms = SPF / REAL_TIME_MSPS / 1e3
+        log(f"[tracking] (a) C={c}: track_symbols n_sym, samples_used and "
+            f"sym_valid equal to the twin's, soft within {err:.3e} "
+            f"(max|soft| {float(soft.abs().max()):.3e}); {nsym} symbols: "
+            f"kernel {ms:.3f} ms per chunk ({air_ms:.0f} ms of air, "
+            f"{air_ms / ms:.1f}x real time), twin {twin_ms:.0f} ms (host), "
+            f"bound {bound_ms:.4f} ms ({bound_by}); sync_scan bit-identical "
+            f"({int(ready.sum())} frames ready, "
+            f"{int((events > 0).sum())} events): kernel {sync_ms:.4f} ms, "
+            f"twin {sync_twin_ms:.0f} ms, bound {s_bound:.5f} ms ({s_by}) "
+            f"({card})")
+    stress = sync_stress(TRACK_CHANNELS, maxs, dev)
+    (_, _, ready, _, events, _, _), _ = hold_sync(*stress, "stress")
+    counts = np.bincount(events.cpu().numpy().ravel(), minlength=6).tolist()
+    if min(counts) == 0:
+        raise AssertionError(f"[tracking] the sync_scan stress reached only "
+                             f"events {counts}")
+    log(f"[tracking] (a) sync_scan bit-identical on the stress input "
+        f"({TRACK_CHANNELS} x {maxs}, events by code {counts}, "
+        f"{int(ready.sum())} ready)")
+    return rows
+
+
+def cpu_streaming(job):
+    """A StreamingDemodulator on the host over one golden capture: its
+    tuples (run in a worker process)."""
+    import torch
+    from opv_tpu_torch.stream import StreamingDemodulator
+    torch.set_num_threads(1)
+    name, opts = job
+    sd = StreamingDemodulator(device="cpu", **opts)
+    x = capture(name)
+    return sd.feed(x) + sd.flush()
+
+
+def same_tracking(got, want, what: str) -> float:
+    """Tuples (bytes, metric, q, symbol index) equal, q within TRACK_Q_TOL;
+    returns the largest q difference."""
+    if [(t[0], t[1], t[3]) for t in got] != [(t[0], t[1], t[3]) for t in want]:
+        raise AssertionError(
+            f"[tracking] {what}: {len(got)} tuples against {len(want)}; "
+            f"(metric, index) {[(t[1], t[3]) for t in got][:12]} against "
+            f"{[(t[1], t[3]) for t in want][:12]}")
+    dq = max((abs(a[2] - b[2]) for a, b in zip(got, want)), default=0.0)
+    if dq > TRACK_Q_TOL:
+        raise AssertionError(f"[tracking] {what}: sync quality differs by "
+                             f"{dq:.3e}")
+    return dq
+
+
+def tracking_goldens(dev, card):
+    """(b) rx_batch and StreamingDemodulator on the card on the golden
+    captures: the reference's frames byte for byte, and the tuples of the
+    same receiver on the host."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from opv_tpu_torch.rx.pipeline import rx_batch
+    from opv_tpu_torch.stream import StreamingDemodulator
+    t0 = time.perf_counter()
+    for name, gold in (("bert3", "bert3.frames"), ("raw3", "raw3.bin")):
+        out = rx_batch(capture(name), device=dev)
+        got = [bytes(f) for f in out["frames"]]
+        if got != golden_frames(gold) or out["perfect"] != len(got):
+            raise AssertionError(f"[tracking] (b) rx_batch {name}: "
+                                 f"{len(got)} frames, {out['perfect']} "
+                                 f"perfect, golden {gold} byte-equal "
+                                 f"{got == golden_frames(gold)}")
+    batch_s = time.perf_counter() - t0
+    jobs = [(name, opts) for name, _, opts in TRACK_GOLDENS]
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(min(len(jobs), 8), mp_context=ctx) as pool:
+        cpu_runs = pool.map(cpu_streaming, jobs)
+        card_runs, card_s = [], 0.0
+        for name, opts in jobs:
+            t1 = time.perf_counter()
+            sd = StreamingDemodulator(device=dev, **opts)
+            card_runs.append(sd.feed(capture(name)) + sd.flush())
+            card_s += time.perf_counter() - t1
+        cpu_runs = list(cpu_runs)
+    both_s = time.perf_counter() - t0
+    dq = 0.0
+    for (name, gold, opts), got, want in zip(TRACK_GOLDENS, card_runs,
+                                             cpu_runs):
+        what = f"(b) StreamingDemodulator {name} {opts or ''}".strip()
+        if [t[0] for t in got] != golden_frames(gold):
+            raise AssertionError(f"[tracking] {what}: the card's frames are "
+                                 f"not {gold} ({len(got)} frames against "
+                                 f"{len(golden_frames(gold))})")
+        dq = max(dq, same_tracking(got, want, what + " card vs cpu"))
+    n = sum(len(r) for r in card_runs)
+    log(f"[tracking] (b) rx_batch on the card: bert3.frames and raw3.bin "
+        f"byte for byte ({batch_s:.1f} s); StreamingDemodulator on the card: "
+        f"the nine golden checks of tests/test_streaming.py byte for byte "
+        f"({n} frames, {card_s:.1f} s host clock), every tuple equal to the "
+        f"host's, largest sync-quality difference {dq:.3e} ({both_s:.1f} s "
+        f"with the host runs in parallel) ({card})")
+    return dict(batch_s=batch_s, card_s=card_s, frames=n, max_q_diff=dq)
+
+
+def tracking_feed(dev):
+    """(C, N) complex128 on the card: channel c is capture c % 7 of
+    TRACK_CAPTURES after (c // 7) * TRACK_LEAD_STEP zero samples, zero
+    padded at the end to the longest channel."""
+    import torch
+    caps = [capture(n) for n in TRACK_CAPTURES]
+    leads = [(c // len(caps)) * TRACK_LEAD_STEP for c in range(TRACK_CHANNELS)]
+    n = max(lead + len(caps[c % len(caps)]) for c, lead in enumerate(leads))
+    x = torch.zeros((TRACK_CHANNELS, n), dtype=torch.complex128, device=dev)
+    for c, lead in enumerate(leads):
+        s = caps[c % len(caps)]
+        x[c, lead:lead + len(s)] = torch.from_numpy(s).to(dev)
+    return x
+
+
+def tracking_64(dev, card):
+    """(c) MultiChannelTrackingDemodulator(channels=64) over the golden mix
+    fed a chunk of air at a time: every channel's tuples equal a
+    single-channel StreamingDemodulator on the card on that channel's
+    samples, channels 0-6 the reference's frames; host ms per chunk, the
+    kernels' device ms per chunk (torch.profiler), peak memory."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from opv_tpu_torch.stream import (MultiChannelTrackingDemodulator,
+                                      StreamingDemodulator)
+    x = tracking_feed(dev)
+    n = x.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mc = MultiChannelTrackingDemodulator(TRACK_CHANNELS, device=dev)
+    res, times = [], []
+    prof_at = (3, 6)            # the profiled chunks, not in the times
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    whole = n // SPF
+    for k in range(whole):
+        if k == prof_at[0]:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        res += mc.feed(x[:, k * SPF:(k + 1) * SPF])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if k == prof_at[1] - 1:
+            prof.__exit__(None, None, None)
+    res += mc.feed(x[:, whole * SPF:]) + mc.flush()
+    peak = torch.cuda.max_memory_allocated()
+    steady = [t for k, t in enumerate(times)
+              if k >= 1 and not prof_at[0] <= k < prof_at[1]]
+    ms_chunk = statistics.median(steady)
+    msps = TRACK_CHANNELS * SPF / ms_chunk / 1e3
+    chunks = prof_at[1] - prof_at[0]
+    dev_ms = Counter()
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        key = next((k for k in ("track_symbols", "sync_scan", "viterbi")
+                    if k in e.key), "other")
+        dev_ms[key] += e.self_device_time_total / 1e3 / chunks
+    # the JAX contract: each channel equals its own single-channel run
+    t0 = time.perf_counter()
+    dq = 0.0
+    for c in range(TRACK_CHANNELS):
+        sd = StreamingDemodulator(device=dev)
+        single = sd.feed(x[c]) + sd.flush()
+        mine = [t[1:] for t in res if t[0] == c]
+        dq = max(dq, same_tracking(mine, single, f"(c) channel {c}"))
+        if c < len(TRACK_CAPTURES):
+            # the reference's frames; past them only frames that end after
+            # the capture does (the flywheel completes one from the zeros)
+            gold = golden_frames(TRACK_GOLDENS[c][1])
+            end = len(capture(TRACK_CAPTURES[c])) // 40
+            if [t[0] for t in mine[:len(gold)]] != gold \
+                    or any(t[3] < end for t in mine[len(gold):]):
+                raise AssertionError(
+                    f"[tracking] (c) channel {c}: not "
+                    f"{TRACK_GOLDENS[c][1]}, then frames past the capture's "
+                    f"end ({[(t[1], t[3]) for t in mine]})")
+    singles_s = time.perf_counter() - t0
+    log(f"[tracking] (c) tracking-64: {len(res)} frames over "
+        f"{TRACK_CHANNELS} channels x {n} samples ({len(times)} feeds of a "
+        f"chunk, then the tail and flush); every channel equal to its own StreamingDemodulator on the "
+        f"card (largest sync-quality difference {dq:.3e}; the single runs "
+        f"{singles_s:.1f} s), channels 0-6 the reference's frames (then "
+        f"only frames ending past the capture, in its zero padding); "
+        f"{ms_chunk:.2f} ms per chunk after the first (median; "
+        f"{min(steady):.2f}-{max(steady):.2f}) = {msps:.1f} Msamples/s = "
+        f"{msps / (TRACK_CHANNELS * REAL_TIME_MSPS):.2f}x real time for "
+        f"{TRACK_CHANNELS} channels; device ms per chunk (torch.profiler, "
+        f"{chunks} chunks): {', '.join(f'{k} {v:.3f}' for k, v in dev_ms.most_common())}; "
+        f"peak memory {peak / 2**30:.2f} GiB ({card})")
+    return dict(frames=len(res), ms_per_chunk=ms_chunk, chunk_ms=times,
+                msps=msps,
+                x_real_time=msps / (TRACK_CHANNELS * REAL_TIME_MSPS),
+                device_ms_per_chunk=dict(dev_ms), peak_bytes=peak,
+                max_q_diff=dq)
+
+
+TRANSITIONS = [
+    "[23] HUNTING→VERIFYING (corr=1.000, raw=5824282519967)",
+    "[2167] VERIFYING→LOCKED (frame 1)",
+    "[2191] LOCKED: sync OK (corr=1.000)",
+    "[4359] LOCKED: sync OK (corr=1.000)",
+    "[6527] LOCKED: sync MISS #1 (corr=0.000)",
+]
+
+
+def tracking_cli(card, fast_echo: dict):
+    """(d) the CLIs' tracking modes on the card: opv_demod batch and -s in
+    this process, opv_modem -l without --fast as a process."""
+    from opv_tpu_torch.cli import opv_demod
+    from opv_tpu_torch.core.framing import build_bert_frame
+    runs = [(["-r", "-q"], "bert3.iq", "bert3.frames"),
+            (["-r", "-q"], "raw3.iq", "raw3.bin"),
+            (["-s", "-r", "-q"], "awgn8.iq", "awgn8.frames"),
+            (["-s", "-r", "-q"], "dropout.iq", "dropout.frames")]
+    t0 = time.perf_counter()
+    for argv, iq, gold in runs:
+        rc, out, err = run_main(opv_demod.main, argv, golden(iq))
+        if rc != 0 or out != golden(gold):
+            raise AssertionError(f"[tracking] (d) opv_demod {argv} < {iq}: rc "
+                                 f"{rc}, {len(out)} bytes, == {gold} "
+                                 f"{out == golden(gold)}; {err[-500:]}")
+    rc, _, err = run_main(opv_demod.main, ["-s"], golden("bert3.iq"))
+    lines = [ln for ln in err.splitlines()
+             if "HUNTING" in ln or "VERIFYING" in ln or "LOCKED:" in ln]
+    if rc != 0 or lines[:5] != TRANSITIONS:
+        raise AssertionError(f"[tracking] (d) opv_demod -s < bert3.iq: rc "
+                             f"{rc}, transition lines {lines[:5]}")
+    demod_s = time.perf_counter() - t0
+    frames = [bytes(f) for f in build_bert_frame(
+        "W5NYV", frame_num=np.arange(CLI_ECHO_WARM + CLI_ECHO_FRAMES))]
+    n_back, cold, lat = modem_echo(["-l"], frames)
+    p50, p95 = lat[len(lat) // 2], lat[int(0.95 * (len(lat) - 1))]
+    log(f"[tracking] (d) opv_demod batch -r -q: bert3.frames and raw3.bin; "
+        f"-s -r -q: awgn8.frames and dropout.frames, byte for byte; -s on "
+        f"bert3.iq: the reference's five transition lines ({demod_s:.1f} s "
+        f"in this process); opv_modem -l (tracking demodulator, exact TX) "
+        f"echoed {n_back}/{len(frames)} frames sent every "
+        f"{CLI_PACING_S * 1e3:.0f} ms byte-equal: the first {cold:.1f} ms "
+        f"after it was sent, then over {len(lat)} frames after "
+        f"{CLI_ECHO_WARM} of warm-up echo p50 {p50:.2f} ms p95 {p95:.2f} ms "
+        f"(host clock), against -l --fast's p50 "
+        f"{fast_echo['echo_p50_ms']:.2f} ms p95 "
+        f"{fast_echo['echo_p95_ms']:.2f} ms in phase 9 ({card})")
+    return dict(demod_s=demod_s, echo_frames=n_back, echo_first_ms=cold,
+                echo_p50_ms=p50, echo_p95_ms=p95, echo_ms=lat)
+
+
+def phase_tracking(dev, card, int_ops_per_s: float, fast_echo: dict):
+    """The reference-parity tracking receiver on the card (phase 11)."""
+    import torch
+    from opv_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    kernels = tracking_kernels(dev, card, int_ops_per_s)
+    registry.set_viterbi_radix(4)
+    registry.reset_launch_counts()
+    goldens = tracking_goldens(dev, card)
+    mc = tracking_64(dev, card)
+    cli = tracking_cli(card, fast_echo)
+    torch.cuda.synchronize()
+    launches = registry.launch_counts()
+    if min(launches[k] for k in ("track_symbols", "sync_scan",
+                                 "viterbi_r4")) <= 0:
+        raise AssertionError(f"[tracking] a kernel of the tracking path never "
+                             f"launched: {launches}")
+    log(f"[tracking] launches over (b)-(d) {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, kernels=kernels, goldens=goldens,
+                tracking_64=mc, cli=cli)
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import torch
@@ -2118,6 +2633,7 @@ def main() -> int:
     cli = phase_cli(x, frames, delays, dev, card, PEAK_OPS_PER_S["f64"])
     del x
     wideband = phase_wideband(dev, card)
+    tracking = phase_tracking(dev, card, int_ops_per_s, cli["processes"])
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -2131,6 +2647,7 @@ def main() -> int:
         k["launches_modes"] = modes["launches"][k["name"]]
         k["launches_cli"] = cli["launches"][k["name"]]
         k["launches_wideband"] = wideband["launches"][k["name"]]
+        k["launches_tracking"] = tracking["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -2140,7 +2657,8 @@ def main() -> int:
             launches=launches[key], launches_stream=stream["launches"][key],
             launches_modes=modes["launches"][key],
             launches_cli=cli["launches"][key],
-            launches_wideband=wideband["launches"][key], **soft[name]))
+            launches_wideband=wideband["launches"][key],
+            launches_tracking=tracking["launches"][key], **soft[name]))
     kernels.append(dict(
         name="phase_track", route="cuda",
         source="opv_tpu_torch/csrc/phase_track.cu",
@@ -2150,10 +2668,26 @@ def main() -> int:
         launches_modes=modes["launches"]["phase_track"],
         launches_cli=cli["launches"]["phase_track"],
         launches_wideband=wideband["launches"]["phase_track"],
+        launches_tracking=tracking["launches"]["phase_track"],
         **cli["phase_track"]))
+    # the tracking receiver's two kernels: ms and bound at C = 64 (one
+    # chunk of the golden mix); launches: the tracking phase's (b)-(d)
+    for name, replaces in (("track_symbols", "opv_tpu/rx/demod.py:195"),
+                           ("sync_scan", "opv_tpu/rx/sync.py:166")):
+        row = dict(tracking["kernels"][TRACK_CHANNELS][name])
+        row.pop("symbols", None)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"opv_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            launches=tracking["launches"][name],
+            **{f"launches_{ph}": res["launches"][name] for ph, res in (
+                ("stream", stream), ("modes", modes), ("cli", cli),
+                ("wideband", wideband), ("tracking", tracking))},
+            **row))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
                       "stream": stream, "modes": modes, "cli": cli,
-                      "wideband": wideband, "peak_bytes": peak}), flush=True)
+                      "wideband": wideband, "tracking": tracking,
+                      "peak_bytes": peak}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,14 @@ paths ported so far.
 Options:
   -q        quiet
   -r        raw 134-byte frames to stdout
-  -s        streaming mode (chunked, for live SDR input)
+  -s        streaming mode (chunked, for live SDR input): the
+            reference-parity tracking demodulator (StreamingDemodulator,
+            float64 AFC + timing loops), with the reference's sync
+            transition lines and a status line every 5 s on stderr
+  (no -s)   batch mode: the whole of stdin demodulated at once (rx_batch)
   -a BW     AFC bandwidth (default 0.001; ignored with -s --fast)
-  -o HZ     initial frequency offset (ignored with -s --fast)
+  -o HZ     initial frequency offset (skips the coarse estimate; ignored
+            with -s --fast)
   -p HZ     PLL bandwidth (accepted for compat)
   --fast    with -s: the locked-grid production engine
             (LockedStreamDemodulator, pipelined): acquisition once,
@@ -31,16 +36,17 @@ Options:
             at block boundaries, so sample-clock drift tolerance shrinks
             with N
   --metrics FILE
-            JSON-lines metrics snapshots ('-' for stderr), with the
-            per-block device-wait vs host-lifecycle split
+            JSON-lines metrics snapshots ('-' for stderr): with -s --fast
+            the per-block device-wait vs host-lifecycle split; with -s one
+            line per status line and a final one with the Viterbi metric
+            histogram
   --profile DIR
             write a torch.profiler Chrome trace of the streaming run to
             DIR/opv_demod_trace.json
   --device  cuda (default), cuda:N or cpu
 
 Not ported yet, each exits with code 2 naming the ROADMAP item that brings
-it: batch --fast (item 10), -s without --fast, batch mode and -c (the
-float64 tracking and coherent demodulators, item 11).
+it: batch --fast (item 10) and -c (the coherent demodulator, item 11b).
 
 Exit code 0 iff at least one frame decoded (opv-demod.cpp:1124, 1216).
 """
@@ -53,6 +59,10 @@ import sys
 
 #: bytes per stdin read, as opv_tpu's opv-demod -s --fast reads
 READ_BYTES = 65536 * 16
+#: bytes per stdin read of -s without --fast, as opv_tpu's opv-demod -s
+TRACKING_READ_BYTES = 65536 * 4
+#: seconds of stream between status lines of -s
+STATUS_EVERY_S = 5.0
 #: least bytes per stdin read with --wideband; a read holds at least one
 #: quantum.  The feeds are exact quanta whatever the read size, so the
 #: tuples do not depend on it.
@@ -74,15 +84,11 @@ def _unported(args) -> str | None:
     """The stderr line of an option or mode the port does not have yet."""
     if args.coherent:
         return ("-c (the coherent Costas-loop demodulator) is not ported to "
-                "opv_tpu_torch yet (ROADMAP item 11)")
+                "opv_tpu_torch yet (ROADMAP item 11b)")
     if not args.streaming and args.fast:
         return ("batch --fast (rx_fast) is not ported to opv_tpu_torch yet "
-                "(ROADMAP item 10); use -s --fast")
-    if not args.fast:
-        mode = "-s without --fast (StreamingDemodulator)" if args.streaming \
-            else "batch mode (rx_batch)"
-        return (f"{mode}, the float64 tracking demodulator, is not ported to "
-                f"opv_tpu_torch yet (ROADMAP item 11); use -s --fast")
+                "(ROADMAP item 10); use -s --fast or batch mode without "
+                "--fast")
     return None
 
 
@@ -147,18 +153,41 @@ def main(argv=None) -> int:
     from opv_tpu_torch.utils.metrics import emit_json, locked_metrics
 
     if not args.quiet:
-        banner("OPV MSK Demodulator with AFC v1.0 (streaming)")
+        banner("OPV MSK Demodulator with AFC v1.0"
+               + (" (streaming)" if args.streaming else ""), out=err)
+    stdout = sys.stdout.buffer
+
+    def emit_frame(i, fb, metric, q):
+        if not args.quiet:
+            print_frame(i, fb, metric, q, out=err)
+        if args.raw:
+            stdout.write(fb)
+            stdout.flush()
+
+    if not args.streaming:
+        return _batch(args, sys.stdin.buffer, dev, emit_frame)
+    metrics_out = None
+    if args.metrics_file:
+        metrics_out = (err if args.metrics_file == "-"
+                       else open(args.metrics_file, "w"))
+    if not args.fast:
+        with _profiled(args.profile_dir, dev):
+            sd = _tracking(args, sys.stdin.buffer, dev, emit_frame,
+                           metrics_out)
+        if metrics_out is not None and metrics_out is not err:
+            metrics_out.close()
+        if not args.quiet:
+            summary(sd.decoded, sd.perfect,
+                    sd.total_samples / CONFIG.sample_rate, sd.total_symbols,
+                    sd.sync_state, sd.freq_offset, out=err)
+        return 0 if sd.decoded > 0 else 1
+
     for flag, name in ((args.init_offset is not None, "-o"),
                        (args.afc_bw != 0.001, "-a")):
         if flag:
             print(f"Warning: {name} is ignored in --fast streaming mode "
                   f"(feed-forward pipeline re-estimates CFO on "
                   f"acquisition and has no AFC loop)", file=err)
-    stdout = sys.stdout.buffer
-    metrics_out = None
-    if args.metrics_file:
-        metrics_out = (err if args.metrics_file == "-"
-                       else open(args.metrics_file, "w"))
     n_emitted = 0
     tagged = args.channels > 1 or args.wideband > 0
 
@@ -166,13 +195,9 @@ def main(argv=None) -> int:
         nonlocal n_emitted
         for c, fb, metric, q, _pos in results:
             n_emitted += 1
-            if not args.quiet:
-                if tagged:
-                    print(f"[ch {c}]", file=err)
-                print_frame(n_emitted, fb, metric, q, out=err)
-            if args.raw:
-                stdout.write(fb)
-                stdout.flush()
+            if not args.quiet and tagged:
+                print(f"[ch {c}]", file=err)
+            emit_frame(n_emitted, fb, metric, q)
 
     def metrics(engine, channels, n_samples, final=False):
         m = locked_metrics(engine, channels, n_samples)
@@ -194,6 +219,98 @@ def main(argv=None) -> int:
                 n_samples // nch // CONFIG.samples_per_symbol, "-", 0.0,
                 out=err)
     return 0 if engine.decoded > 0 else 1
+
+
+def _batch(args, stdin, dev, emit_frame) -> int:
+    """Batch mode: all of stdin through rx_batch (opv-demod.cpp:1127-1216)."""
+    from opv_tpu_torch.config import CONFIG
+    from opv_tpu_torch.io.iq import iq_bytes_to_complex
+    from opv_tpu_torch.rx.pipeline import rx_batch
+    from opv_tpu_torch.stream.chunked import STATE_NAMES
+    from opv_tpu_torch.utils.display import summary
+    err = sys.stderr
+    samples = iq_bytes_to_complex(stdin.read())
+    if not args.quiet:
+        print(f"Loaded {len(samples)} samples "
+              f"({len(samples) / CONFIG.sample_rate:.3f} sec)", file=err)
+    if len(samples) == 0:
+        return 1
+    out = rx_batch(samples, init_offset=args.init_offset,
+                   afc_alpha=args.afc_bw, device=dev)
+    if not args.quiet:
+        print(f"Estimated carrier offset: {float(out['est_offset']):.1f} Hz",
+              file=err)
+        print(f"Demodulated {int(out['n_symbols'])} symbols, final AFC "
+              f"offset: {float(out['freq_offset']):.1f} Hz\n", file=err)
+    decoded = perfect = 0
+    for fb, metric, q in zip(out["frames"], out["metrics"], out["sync_q"]):
+        decoded += 1
+        perfect += int(metric == 0)
+        emit_frame(decoded, bytes(fb), int(metric), float(q))
+    if not args.quiet:
+        summary(decoded, perfect, len(samples) / CONFIG.sample_rate,
+                int(out["n_symbols"]), STATE_NAMES[int(out["tracker_state"])],
+                float(out["freq_offset"]), out=err)
+    return 0 if decoded > 0 else 1
+
+
+def _tracking(args, stdin, dev, emit_frame, metrics_out):
+    """-s without --fast: TRACKING_READ_BYTES reads fed to the
+    StreamingDemodulator as complex128 (opv-demod.cpp:995-1125), the
+    reference's sync transition lines as they happen, a status line (and a
+    metrics line) every STATUS_EVERY_S seconds of stream.  Returns the
+    demodulator."""
+    from opv_tpu_torch.config import CONFIG
+    from opv_tpu_torch.io.iq import iq_bytes_to_complex
+    from opv_tpu_torch.stream import StreamingDemodulator
+    from opv_tpu_torch.utils.display import print_sync_event, status_line
+    from opv_tpu_torch.utils.metrics import (MetricHistogram, demod_metrics,
+                                             emit_json)
+    err = sys.stderr
+    if not args.quiet:
+        print("Streaming mode: processing data as it arrives...\n", file=err)
+        if args.init_offset is not None:
+            print(f"Initial frequency offset: {args.init_offset:.1f} Hz",
+                  file=err)
+    # the reference prints the transitions unconditionally
+    # (src/opv-demod.cpp:651-706); -q keeps them quiet here
+    sd = StreamingDemodulator(
+        init_offset=args.init_offset, afc_alpha=args.afc_bw,
+        on_event=None if args.quiet else print_sync_event, device=dev)
+    hist = MetricHistogram()
+
+    def emit(results):
+        base_n = sd.decoded - len(results)
+        for j, (fb, metric, q, _idx) in enumerate(results):
+            hist.add(metric)
+            emit_frame(base_n + j + 1, fb, metric, q)
+
+    printed_offset = args.init_offset is not None
+    last_status = 0.0
+    while True:
+        buf = stdin.read(TRACKING_READ_BYTES)
+        if not buf:
+            break
+        emit(sd.feed(iq_bytes_to_complex(buf)))
+        if not printed_offset and sd.est_offset is not None:
+            if not args.quiet:
+                print(f"Estimated carrier offset: {sd.est_offset:.1f} Hz\n",
+                      file=err)
+            printed_offset = True
+        secs = sd.total_samples / CONFIG.sample_rate
+        if secs - last_status >= STATUS_EVERY_S:
+            if not args.quiet:
+                status_line(secs, sd.total_symbols, sd.decoded, sd.perfect,
+                            sd.freq_offset, sd.timing_freq, out=err)
+            if metrics_out is not None:
+                emit_json(demod_metrics(sd), metrics_out)
+            last_status = secs
+    emit(sd.flush())
+    if metrics_out is not None:
+        m = demod_metrics(sd)
+        m["viterbi_metric_hist"] = hist.as_dict()
+        emit_json(m, metrics_out)
+    return sd
 
 
 def _channels(args, stdin, dev, handle, metrics):

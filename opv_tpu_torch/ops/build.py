@@ -47,6 +47,12 @@ SIGNATURES = {
     "opv_symbol_soft_config": ([_I, ctypes.POINTER(_I)], _I),
     "opv_phase_track": ([_P, ctypes.c_double, ctypes.c_double, _I,
                          ctypes.c_longlong, _P, _P, _P], _I),
+    "opv_track_symbols": ([_P, ctypes.c_longlong, _P, _P, _I, _I,
+                           ctypes.POINTER(ctypes.c_double), _P, _P, _P, _P,
+                           _P], _I),
+    "opv_sync_scan": ([_P, _P, _P, _I, _I, ctypes.POINTER(ctypes.c_double),
+                       ctypes.POINTER(_I), _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P], _I),
     "opv_error_string": ([_I], ctypes.c_char_p),
 }
 

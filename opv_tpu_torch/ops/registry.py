@@ -15,6 +15,8 @@ import torch
 
 from opv_tpu_torch.ops import phase_track as _phase
 from opv_tpu_torch.ops import symbol_soft as _soft
+from opv_tpu_torch.ops import sync_scan as _sync
+from opv_tpu_torch.ops import track_symbols as _track
 from opv_tpu_torch.ops import viterbi as _vit
 
 _radix = int(os.environ.get("OPV_VITERBI_RADIX", "4"))
@@ -61,6 +63,24 @@ def phase_track(ph0, incs, n: int):
     return _phase.phase_track_reference(ph0, incs, n)
 
 
+def track_symbols(samples, n_valid, state, afc_alpha: float, maxs: int):
+    """The AFC/TED symbol loop (ops/track_symbols.py contract) ->
+    (soft, sym_valid, state, samples_used)."""
+    if _route(samples) == "cuda":
+        return _track.track_symbols_cuda(samples, n_valid, state, afc_alpha,
+                                         maxs)
+    return _track.track_symbols_reference(samples, n_valid, state, afc_alpha,
+                                          maxs)
+
+
+def sync_scan(raw, norm, valid, ints, sync_q):
+    """The sync state machine (ops/sync_scan.py contract) -> (ints, sync_q,
+    ready, q, events, ev_misses, ev_frames)."""
+    if _route(raw) == "cuda":
+        return _sync.sync_scan_cuda(raw, norm, valid, ints, sync_q)
+    return _sync.sync_scan_reference(raw, norm, valid, ints, sync_q)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset (the soft stage
     once per row type)."""
@@ -68,12 +88,16 @@ def launch_counts() -> dict[str, int]:
             "viterbi_r2": _vit.viterbi_r2_cuda.launches,
             **{f"symbol_soft[{rows}]": n
                for rows, n in _soft.symbol_soft_cuda.launches.items()},
-            "phase_track": _phase.phase_track_cuda.launches}
+            "phase_track": _phase.phase_track_cuda.launches,
+            "track_symbols": _track.track_symbols_cuda.launches,
+            "sync_scan": _sync.sync_scan_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     _vit.viterbi_r4_cuda.launches = 0
     _vit.viterbi_r2_cuda.launches = 0
     _phase.phase_track_cuda.launches = 0
+    _track.track_symbols_cuda.launches = 0
+    _sync.sync_scan_cuda.launches = 0
     for rows in _soft.symbol_soft_cuda.launches:
         _soft.symbol_soft_cuda.launches[rows] = 0

@@ -1,0 +1,165 @@
+"""The sync state machine: the hand-written CUDA kernel (csrc/sync_scan.cu)
+and its plain twin, one contract:
+
+    raw, norm (C, S) float64, valid (C, S) bool,
+    ints (C, 6) int32 [state, sss, misses, collecting, total, frames],
+    sync_q (C,) float64 ->
+        ints (C, 6), sync_q (C,), ready (C, S) bool, q (C, S) float64,
+        events (C, S) int32, ev_misses (C, S) int32, ev_frames (C, S) int32
+
+the lax.scan of opv_tpu/rx/sync.py::sync_scan (`:166`, not a Pallas
+kernel): HUNTING -> VERIFYING on a sync hit past the 24-symbol warm-up,
+VERIFYING -> LOCKED (frame ready) 2144 symbols after it, LOCKED re-checks
+sync every 2168 symbols (OK, a flywheel miss, or lost lock at the 5th) and
+emits a frame 2144 symbols after each check while collecting.  Every
+output is an integer or a copy of an input, so the kernel and the twin
+agree bit for bit.  The twin walks each channel's symbols over Python
+ints and floats.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from opv_tpu_torch.config import CONFIG
+from opv_tpu_torch.ops import build
+
+HUNT, VERIFY, LOCKED = 0, 1, 2
+#: transition codes per symbol (opv_tpu/rx/sync.py EV_*)
+EV_NONE, EV_HUNT_VERIFY, EV_VERIFY_LOCK, EV_SYNC_OK, EV_SYNC_MISS, \
+    EV_LOSE_LOCK = range(6)
+INT_WIDTH = 6
+_TOTAL_CAP = 1 << 30
+
+
+def _thresholds():
+    return (CONFIG.sync_hunt_norm_thresh, CONFIG.sync_locked_norm_thresh,
+            CONFIG.sync_hunt_raw_thresh)
+
+
+def _counts():
+    return (CONFIG.sync_bits, CONFIG.encoded_bits, CONFIG.frame_symbols,
+            CONFIG.sync_miss_limit)
+
+
+def _i32(x: int) -> int:
+    """x wrapped to int32, as the JAX carry wraps."""
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _check(raw, norm, valid, ints, sync_q):
+    c, s = raw.shape
+    if raw.dtype != torch.float64 or norm.dtype != torch.float64 \
+            or norm.shape != (c, s) or valid.shape != (c, s):
+        raise ValueError(f"raw/norm must be (C, S) float64 and valid (C, S), "
+                         f"got {tuple(raw.shape)} {raw.dtype}, "
+                         f"{tuple(norm.shape)} {norm.dtype}, "
+                         f"{tuple(valid.shape)}")
+    if ints.shape != (c, INT_WIDTH) or sync_q.shape != (c,):
+        raise ValueError(f"ints must be ({c}, {INT_WIDTH}) and sync_q ({c},), "
+                         f"got {tuple(ints.shape)}, {tuple(sync_q.shape)}")
+
+
+def sync_scan_reference(raw: torch.Tensor, norm: torch.Tensor,
+                        valid: torch.Tensor, ints: torch.Tensor,
+                        sync_q: torch.Tensor):
+    """The plain twin (CPU): each channel's symbols in order, over Python
+    ints and floats."""
+    _check(raw, norm, valid, ints, sync_q)
+    hunt_norm, locked_norm, hunt_raw = _thresholds()
+    sync_bits, eb, fs, miss_limit = _counts()
+    c, s = raw.shape
+    out_ready, out_q, out_ev, out_m, out_f = [], [], [], [], []
+    st_out, q_out = [], []
+    for (state, sss, misses, coll, total, frames), sq, rr, nn, vv in zip(
+            ints.tolist(), sync_q.tolist(), raw.tolist(), norm.tolist(),
+            valid.tolist()):
+        collecting = bool(coll)
+        ready, qs, evs, ms, fr = [False] * s, [0.0] * s, [0] * s, [0] * s, [0] * s
+        for t in range(s):
+            if vv[t]:
+                r, nrm = rr[t], nn[t]
+                total = min(_i32(total + 1), _TOTAL_CAP)
+                sss1 = _i32(sss + 1)
+                hunt_hit = (state == HUNT and total >= sync_bits
+                            and r >= hunt_raw and nrm >= hunt_norm)
+                ver_done = state == VERIFY and sss1 >= eb
+                lock_chk = state == LOCKED and sss1 == fs
+                lock_ok = lock_chk and nrm >= locked_norm
+                lock_miss = lock_chk and not lock_ok
+                m = 0 if lock_ok else (_i32(misses + 1) if lock_miss else misses)
+                lose_lock = lock_miss and m >= miss_limit
+                flywheel = lock_miss and not lose_lock
+                lock_emit = state == LOCKED and collecting and sss1 == eb
+                synced = hunt_hit or lock_ok or flywheel
+                state = (VERIFY if hunt_hit else LOCKED if ver_done
+                         else HUNT if lose_lock else state)
+                collecting = (True if synced else False
+                              if (ver_done or lose_lock or lock_emit)
+                              else collecting)
+                sss = 0 if (hunt_hit or lock_chk) else sss1
+                sq = nrm if synced else sq
+                misses = 0 if ver_done else m
+                rdy = ver_done or lock_emit
+                frames = _i32(frames + rdy)
+                ready[t] = rdy
+                evs[t] = (EV_HUNT_VERIFY if hunt_hit else EV_VERIFY_LOCK
+                          if ver_done else EV_SYNC_OK if lock_ok
+                          else EV_LOSE_LOCK if lose_lock
+                          else EV_SYNC_MISS if flywheel else EV_NONE)
+            qs[t], ms[t], fr[t] = sq, misses, frames
+        out_ready.append(ready)
+        out_q.append(qs)
+        out_ev.append(evs)
+        out_m.append(ms)
+        out_f.append(fr)
+        st_out.append([state, sss, misses, int(collecting), total, frames])
+        q_out.append(sq)
+    dev = raw.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    return (torch.tensor(st_out, **i32).reshape(c, INT_WIDTH),
+            torch.tensor(q_out, **f64).reshape(c),
+            torch.tensor(out_ready, dtype=torch.bool, device=dev).reshape(c, s),
+            torch.tensor(out_q, **f64).reshape(c, s),
+            torch.tensor(out_ev, **i32).reshape(c, s),
+            torch.tensor(out_m, **i32).reshape(c, s),
+            torch.tensor(out_f, **i32).reshape(c, s))
+
+
+def sync_scan_cuda(raw: torch.Tensor, norm: torch.Tensor, valid: torch.Tensor,
+                   ints: torch.Tensor, sync_q: torch.Tensor):
+    """The kernel: one thread per channel, on raw's stream."""
+    if not raw.is_cuda:
+        raise ValueError("the CUDA sync_scan kernel needs a CUDA tensor")
+    _check(raw, norm, valid, ints, sync_q)
+    c, s = raw.shape
+    dev = raw.device
+    raw, norm = raw.contiguous(), norm.contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    ints = ints.to(device=dev, dtype=torch.int32).contiguous()
+    sync_q = sync_q.to(device=dev, dtype=torch.float64).contiguous()
+    ints_out = torch.empty_like(ints)
+    q_out = torch.empty_like(sync_q)
+    ready = torch.empty((c, s), dtype=torch.bool, device=dev)
+    q = torch.empty((c, s), dtype=torch.float64, device=dev)
+    events, ev_misses, ev_frames = (torch.empty((c, s), dtype=torch.int32,
+                                                device=dev) for _ in range(3))
+    if c:
+        lib = build.library()
+        thr = (ctypes.c_double * 3)(*_thresholds())
+        cnt = (ctypes.c_int * 4)(*_counts())
+        err = lib.opv_sync_scan(
+            raw.data_ptr(), norm.data_ptr(), valid.data_ptr(), c, s, thr, cnt,
+            ints.data_ptr(), sync_q.data_ptr(), ints_out.data_ptr(),
+            q_out.data_ptr(), ready.data_ptr(), q.data_ptr(),
+            events.data_ptr(), ev_misses.data_ptr(), ev_frames.data_ptr(),
+            build.stream_ptr(raw))
+        build.check(lib, err, "sync_scan")
+        sync_scan_cuda.launches += 1
+    return ints_out, q_out, ready, q, events, ev_misses, ev_frames
+
+
+sync_scan_cuda.launches = 0

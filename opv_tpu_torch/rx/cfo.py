@@ -56,3 +56,11 @@ def estimate_cfo_batch(samples: torch.Tensor) -> torch.Tensor:
         -fspan, fspan + fstep / 2, fstep, dtype=torch.float64, device=dev)
     fine_best, fine_e = select(fine, grid_energies(samples, fine))
     return torch.where(fine_e > coarse_e, fine_best, coarse_best)
+
+
+
+def estimate_cfo(samples: torch.Tensor) -> torch.Tensor:
+    """(N,) complex -> 0-d float64 Hz: estimate_cfo_batch of one channel
+    (opv_tpu's single-channel estimate_cfo has the same grids and
+    selection; on complex128 the two agree exactly)."""
+    return estimate_cfo_batch(samples[None])[0]

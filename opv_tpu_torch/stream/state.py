@@ -1,11 +1,13 @@
 """Checkpoint/resume of the streaming engine's state.
 
-The state is a dict of leaves (LockedStreamDemodulator.state_tree), or of
+The state is a dict of leaves (LockedStreamDemodulator.state_tree), of
 leaves and such dicts (WidebandReceiver.state_tree nests the engine's
-under "demod").  Its leaves are stored in the JAX package's layout
-(opv_tpu/stream/state.py): one .npz holding `n_leaves` and `leaf_{i}`,
-the leaves in the order jax.tree.flatten gives a dict, which is by sorted
-key, depth first.  A checkpoint written by either package therefore loads
+under "demod"), or of leaves and NamedTuples of leaves
+(StreamingDemodulator.state_tree's LoopState and SyncTrackerState).  Its
+leaves are stored in the JAX package's layout (opv_tpu/stream/state.py):
+one .npz holding `n_leaves` and `leaf_{i}`, the leaves in the order
+jax.tree.flatten gives, a dict by sorted key and a NamedTuple by field,
+depth first.  A checkpoint written by either package therefore loads
 in the other.
 
 Tensors are stored as numpy arrays; bfloat16 tensors widened to float32
@@ -24,6 +26,12 @@ def _norm(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
+def _is_record(x) -> bool:
+    """A NamedTuple (a tuple with fields), which jax.tree.flatten walks
+    in field order."""
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _paths(tree, prefix=()) -> list:
     """The key path of every leaf, in jax.tree.flatten's order."""
     if not isinstance(tree, dict):
@@ -33,9 +41,12 @@ def _paths(tree, prefix=()) -> list:
         v = tree[k]
         if isinstance(v, dict):
             out += _paths(v, prefix + (k,))
+        elif _is_record(v):
+            out += [prefix + (k, i) for i in range(len(v))]
         elif isinstance(v, (list, tuple)):
             raise TypeError(f"state entry {prefix + (k,)} is a "
-                            f"{type(v).__name__}; only dicts nest")
+                            f"{type(v).__name__}; only dicts and NamedTuples "
+                            f"nest")
         else:
             out.append(prefix + (k,))
     return out
@@ -65,19 +76,24 @@ def save_state(path: str, tree: dict) -> None:
              **{f"leaf_{i}": x for i, x in enumerate(leaves)})
 
 
+def _rebuild(like, leaves):
+    """`like`'s structure with its leaves taken in order from `leaves`."""
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], leaves) for k in sorted(like)}
+    if _is_record(like):
+        return type(like)(*(next(leaves) for _ in like))
+    return next(leaves)
+
+
 def load_state(path: str, like: dict) -> dict:
     """Restore a state saved with save_state (by either package), using
-    `like` (a state of the same layout) for its structure."""
+    `like` (a state of the same layout) for its structure: dicts of numpy
+    leaves, NamedTuples rebuilt with numpy fields."""
     paths = _paths(like)
     with np.load(_norm(path)) as data:
         if int(data["n_leaves"]) != len(paths):
             raise ValueError(
                 f"checkpoint has {int(data['n_leaves'])} leaves but the "
                 f"target structure has {len(paths)} — wrong `like` template?")
-        out: dict = {}
-        for i, p in enumerate(paths):
-            node = out
-            for k in p[:-1]:
-                node = node.setdefault(k, {})
-            node[p[-1]] = data[f"leaf_{i}"]
-        return out
+        leaves = iter([data[f"leaf_{i}"] for i in range(len(paths))])
+        return _rebuild(like, leaves)

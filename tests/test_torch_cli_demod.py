@@ -1,7 +1,9 @@
 """The port's opv-demod (opv_tpu_torch.cli.opv_demod) on the CPU: -s --fast
 round trips, the golden captures decoded exactly as the JAX package's
 pipelined engine decodes them when fed the CLI's 1 MiB reads, metrics,
-profile, --wideband, and the exit codes of the paths not ported yet."""
+profile, --wideband; batch mode and -s (the tracking receiver) against
+the reference binary's golden frames and stderr lines; and the exit codes
+of the paths not ported yet."""
 
 import json
 import pathlib
@@ -130,13 +132,59 @@ def test_help_and_empty_input():
 
 @pytest.mark.parametrize("argv,item", [
     (["--fast"], "item 10"),
-    (["-s"], "item 11"),
-    ([], "item 11"),
-    (["-s", "--fast", "-c"], "item 11"),
+    (["-s", "--fast", "-c"], "item 11b"),
 ])
 def test_unported_paths_exit_2(argv, item):
     rc, out, err = run_main(opv_demod.main, argv + CPU, b"\0" * 4000)
     assert rc == 2 and out == b"" and item in err and "not ported" in err
+
+
+@pytest.mark.parametrize("name,gold", [("bert3", "bert3.frames"),
+                                       ("raw3", "raw3.bin")])
+def test_batch_mode_gives_the_golden_frames(name, gold):
+    """Batch mode (no -s): rx_batch over all of stdin, the reference's
+    frames on stdout; the reference's stderr report around them."""
+    rc, out, err = run_main(opv_demod.main, ["-r"] + CPU,
+                            (GOLDEN / f"{name}.iq").read_bytes())
+    assert rc == 0 and out == (GOLDEN / gold).read_bytes()
+    assert "Loaded 264160 samples (0.122 sec)" in err
+    assert "Demodulated 6603 symbols, final AFC offset:" in err
+    assert "Summary: 3 frames (3 perfect, 0 errors)" in err
+    assert "Final state: LOCKED" in err
+
+
+def test_streaming_transition_lines_and_metrics(tmp_path):
+    """-s on bert3.iq: the reference binary's sync transition lines byte
+    for byte (tests/test_cli.py::TestSyncDiagnostics), the CFO estimate,
+    the summary, and a final metrics line with the Viterbi histogram."""
+    path = tmp_path / "m.jsonl"
+    rc, out, err = run_main(opv_demod.main, ["-s", "--metrics", str(path)]
+                            + CPU, (GOLDEN / "bert3.iq").read_bytes())
+    lines = [ln for ln in err.splitlines()
+             if "HUNTING" in ln or "VERIFYING" in ln or "LOCKED:" in ln]
+    assert rc == 0 and out == b""
+    assert lines[:5] == [
+        "[23] HUNTING→VERIFYING (corr=1.000, raw=5824282519967)",
+        "[2167] VERIFYING→LOCKED (frame 1)",
+        "[2191] LOCKED: sync OK (corr=1.000)",
+        "[4359] LOCKED: sync OK (corr=1.000)",
+        "[6527] LOCKED: sync MISS #1 (corr=0.000)",
+    ]
+    assert "Estimated carrier offset: 1430.0 Hz" in err
+    assert "Summary: 3 frames (3 perfect, 0 errors)" in err
+    final = json.loads(path.read_text().splitlines()[-1])
+    assert final["frames"] == 3 and final["sync_state"] == "LOCKED"
+    assert final["viterbi_metric_hist"]["<=0"] == 3
+
+
+@pytest.mark.parametrize("argv,gold", [(["-a", "0.01"], "cfo500_a01.frames"),
+                                       (["-o", "500"], "cfo500_o500.frames")])
+def test_streaming_dsp_tunables(argv, gold):
+    """-s -a / -o on the +500 Hz capture: the reference's frames for each
+    (tests/test_streaming.py::TestDSPTunableParity)."""
+    rc, out, err = run_main(opv_demod.main, ["-s", "-r", "-q"] + argv + CPU,
+                            (GOLDEN / "cfo500.iq").read_bytes())
+    assert rc == 0 and out == (GOLDEN / gold).read_bytes(), err[-1000:]
 
 
 @pytest.fixture(scope="module")

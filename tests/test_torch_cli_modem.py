@@ -1,6 +1,7 @@
 """The port's opv-modem (opv_tpu_torch.cli.opv_modem) on the CPU, on
-ephemeral UDP ports: -l --fast echo, -t with its -o tee (exact TX by
-default), -R --fast delivery, and the exit codes."""
+ephemeral UDP ports: -l echo with --fast (the locked engine) and without
+(the tracking demodulator), -t with its -o tee (exact TX by default), -R
+delivery with and without --fast, and the exit codes."""
 
 import pathlib
 import select
@@ -82,6 +83,44 @@ def test_loopback_fast_echo():
     assert got == sent[:-1]
 
 
+def test_loopback_tracking_echo():
+    """-l without --fast: the exact TX and the tracking demodulator
+    (StreamingDemodulator) echo frames sent at 40 ms pacing byte-equal, in
+    order; each comes back once the next frame's samples complete its
+    chunk, so the last one stays in the modem."""
+    proc, port = _serve(["-l"], stdout=subprocess.DEVNULL)
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    sent = [_frame(k) for k in range(4)]
+    try:
+        for f in sent:
+            s.sendto(f, ("127.0.0.1", port))
+            time.sleep(0.04)
+        s.settimeout(60)
+        got = [s.recvfrom(4096)[0] for _ in range(len(sent) - 1)]
+    finally:
+        _stop(proc)
+        s.close()
+    assert got == sent[:-1]
+
+
+def test_rx_tracking_delivers_the_frames():
+    """-R without --fast on bert3.iq: the tracking demodulator's three
+    frames arrive over UDP in order, byte-equal to the reference's."""
+    listener = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    listener.bind(("127.0.0.1", 0))
+    listener.settimeout(5)
+    port = listener.getsockname()[1]
+    try:
+        rc, out, err = run_main(opv_modem.main, ["-R", "-q", "-r", str(port)]
+                                + CPU, (GOLDEN / "bert3.iq").read_bytes())
+        got = [listener.recvfrom(4096)[0] for _ in range(3)]
+    finally:
+        listener.close()
+    assert rc == 0 and out == b"" and err == ""
+    assert b"".join(got) == (GOLDEN / "bert3.frames").read_bytes()
+
+
 def test_tx_tee_is_the_exact_modulation(tmp_path):
     """-t -o FILE: stdout carries the frame's exact (default) modulation,
     the JAX package's and the reference's float64 path, and the tee holds
@@ -126,8 +165,6 @@ def test_rx_fast_delivers_the_frames():
 
 
 @pytest.mark.parametrize("argv,rc,msg", [
-    (["-l"], 2, "item 11"),
-    (["-R"], 2, "item 11"),
     (["-l", "-t"], 1, "Cannot combine"),
     (["-h"], 1, "opv-modem"),
     (["-t", "-c", "BAD!"], 1, "Invalid callsign"),

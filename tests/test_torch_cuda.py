@@ -15,10 +15,13 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from chip_smoke import (MODES_WEAK_GAIN, drive_wideband,  # noqa: E402
-                        hold_stream_kernels, impaired_feed, k4_chunks,
-                        same_stream, same_wideband, serve_eager, spy_kernels,
-                        stream_twin_checks, viterbi_inputs, wideband_k4)
+from chip_smoke import (MODES_WEAK_GAIN, capture,  # noqa: E402
+                        drive_wideband, golden_frames, hold_stream_kernels,
+                        hold_sync, hold_track, impaired_feed, k4_chunks,
+                        same_stream, same_tracking, same_wideband,
+                        serve_eager, spy_kernels, stream_twin_checks,
+                        sync_stress, track_inputs, viterbi_inputs,
+                        wideband_k4)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
 from opv_tpu_torch.ops import registry  # noqa: E402
@@ -393,3 +396,53 @@ def test_wideband_receiver_on_card_matches_cpu(cuda_dev):
     for c in (0, 2):
         assert {r[1] for r in runs[0] if r[0] == c and r[2] <= 16} \
             == set(frames[c])
+
+
+@pytest.mark.parametrize("channels", [1, 7])
+def test_track_symbols_kernel_matches_twin(cuda_dev, channels):
+    """The AFC/TED loop kernel against its twin on one chunk of the golden
+    captures, then a second call from the carried state and leftover: the
+    symbol counts and positions equal, soft and the state within
+    chip_smoke.TRACK_RTOL (hold_track)."""
+    from opv_tpu_torch.ops import track_symbols as ts
+    x, nv, state = track_inputs(channels, cuda_dev)
+    n0 = ts.track_symbols_cuda.launches
+    (_, valid, st, used), _, _ = hold_track(x, nv, state, "first call")
+    assert ts.track_symbols_cuda.launches == n0 + 1
+    assert int(valid.sum()) >= 2160 * channels
+    nxt = torch.stack([torch.from_numpy(capture(n)[u:u + x.shape[1]]).to(cuda_dev)
+                       for n, u in zip(("bert3", "cfo500", "awgn10", "awgn7",
+                                        "awgn8", "dropout", "drift"),
+                                       used.tolist())])[:channels]
+    hold_track(nxt, nv, st, "second call")
+
+
+def test_sync_scan_kernel_matches_twin(cuda_dev):
+    """The state machine kernel bit for bit against its twin on inputs
+    that reach every transition (chip_smoke.sync_stress)."""
+    from opv_tpu_torch.ops import sync_scan as sc
+    n0 = sc.sync_scan_cuda.launches
+    (_, _, ready, _, events, _, _), _ = hold_sync(*sync_stress(64, 2284, cuda_dev),
+                                                  "stress")
+    assert sc.sync_scan_cuda.launches == n0 + 1
+    assert set(events.unique().tolist()) == set(range(6))
+    assert int(ready.sum()) > 0
+
+
+@pytest.mark.parametrize("name,gold", [("bert3", "bert3.frames"),
+                                       ("dropout", "dropout.frames")])
+def test_streaming_on_card_matches_cpu(cuda_dev, name, gold):
+    """StreamingDemodulator on the card: the reference's frames, and the
+    tuples of the same receiver on the host (q within TRACK_Q_TOL)."""
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.stream import StreamingDemodulator
+    x = capture(name)
+    registry.reset_launch_counts()
+    sd = StreamingDemodulator(device=cuda_dev)
+    got = sd.feed(x) + sd.flush()
+    counts = registry.launch_counts()
+    assert min(counts[k] for k in ("track_symbols", "sync_scan",
+                                   "viterbi_r4")) > 0
+    assert [t[0] for t in got] == golden_frames(gold)
+    sd = StreamingDemodulator(device="cpu")
+    same_tracking(got, sd.feed(x) + sd.flush(), f"{name} card vs cpu")

@@ -25,15 +25,21 @@ MODULES = [
     "opv_tpu_torch.rx.fast",
     "opv_tpu_torch.rx.locked",
     "opv_tpu_torch.rx.channelizer",
+    "opv_tpu_torch.rx.demod",
+    "opv_tpu_torch.rx.pipeline",
     "opv_tpu_torch.ops.build",
     "opv_tpu_torch.ops.viterbi",
     "opv_tpu_torch.ops.symbol_soft",
     "opv_tpu_torch.ops.registry",
     "opv_tpu_torch.ops.phase_track",
+    "opv_tpu_torch.ops.track_symbols",
+    "opv_tpu_torch.ops.sync_scan",
     "opv_tpu_torch.stream",
     "opv_tpu_torch.stream.locked",
     "opv_tpu_torch.stream.state",
     "opv_tpu_torch.stream.wideband",
+    "opv_tpu_torch.stream.chunked",
+    "opv_tpu_torch.stream.tracking",
     "opv_tpu_torch.entry",
     "opv_tpu_torch.io",
     "opv_tpu_torch.io.iq",
@@ -90,11 +96,38 @@ def test_cpu_smoke_of_the_slice_without_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
 
 
+def test_tracking_receiver_without_jax():
+    """The tracking receiver (rx_batch, StreamingDemodulator) runs on CPU
+    tensors with jax and opv_tpu absent."""
+    r = _run("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["opv_tpu"] = None
+        import numpy as np, torch
+        from opv_tpu_torch.core.framing import build_bert_frame, encode_frame
+        from opv_tpu_torch.rx.pipeline import rx_batch
+        from opv_tpu_torch.stream import StreamingDemodulator
+        from opv_tpu_torch.tx.modulator import (iq_int16_to_complex,
+                                                modulate_frames, tx_flush_zeros)
+        fr = build_bert_frame("W5NYV", frame_num=np.arange(2))
+        iq, _ = modulate_frames(encode_frame(torch.from_numpy(fr)))
+        s = iq_int16_to_complex(torch.cat([iq, tx_flush_zeros()])).to(torch.complex128)
+        out = rx_batch(s, device="cpu")
+        assert out["decoded"] == 2 and np.array_equal(out["frames"], fr)
+        sd = StreamingDemodulator(device="cpu")
+        res = sd.feed(s) + sd.flush()
+        assert [r[0] for r in res] == [bytes(f) for f in fr]
+        print("ok")
+    """)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
 def test_cuda_entry_point_without_cuda_raises():
     """No CPU fallback hides the device: the CUDA wrappers refuse CPU
     tensors, and the registry sends CPU tensors to the twins."""
     import torch
-    from opv_tpu_torch.ops import phase_track, symbol_soft, viterbi
+    from opv_tpu_torch.ops import (phase_track, symbol_soft, sync_scan,
+                                   track_symbols, viterbi)
     soft = torch.zeros((1, 2144), dtype=torch.int32)
     with pytest.raises(ValueError):
         viterbi.viterbi_r4_cuda(soft)
@@ -107,5 +140,17 @@ def test_cuda_entry_point_without_cuda_raises():
     with pytest.raises(ValueError):
         phase_track.phase_track_cuda(torch.zeros(2, dtype=torch.float64),
                                      (0.1, -0.1), 5)
+    with pytest.raises(ValueError):
+        track_symbols.track_symbols_cuda(
+            torch.zeros((1, 64), dtype=torch.complex128),
+            torch.tensor([64], dtype=torch.int32),
+            torch.zeros((1, 9), dtype=torch.float64), 0.001, 3)
+    f64 = torch.zeros((1, 3), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        sync_scan.sync_scan_cuda(f64, f64, f64.bool(),
+                                 torch.zeros((1, 6), dtype=torch.int32),
+                                 torch.zeros(1, dtype=torch.float64))
     assert viterbi.viterbi_r4_cuda.launches == 0
     assert phase_track.phase_track_cuda.launches == 0
+    assert track_symbols.track_symbols_cuda.launches == 0
+    assert sync_scan.sync_scan_cuda.launches == 0
