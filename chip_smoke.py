@@ -115,6 +115,12 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               within TRACK_RTOL; sync_scan bit for bit on the card's
               raw/norm and on a stress input reaching every transition;
               both timed against the chunk's 40 ms of air and their bounds;
+              track_symbols' ms per chunk also as cycles a symbol (ms x
+              the max SM clock, not a clock64 count) and its ptxas
+              report; track_symbols held against the twin on the edges
+              of its sample ring (TRACK_EDGE_CASES: a whole-capture
+              launch, caps of 64 and 100, a window clamped at cap - 64,
+              133 channels, a view at a storage offset);
               (b) rx_batch on the card: bert3.frames and raw3.bin byte for
               byte; StreamingDemodulator on the card: the nine golden
               checks of tests/test_streaming.py, every tuple equal to the
@@ -272,6 +278,9 @@ TRACK_RTOL = 1e-9
 #: above); bytes, metric and symbol index must be equal
 TRACK_Q_TOL = 1e-9
 TRACK_REPS = 5
+#: the inputs of track_edge_case: the edges of the kernel's sample ring
+TRACK_EDGE_CASES = ("whole capture", "cap 64", "cap 100", "clamp 1",
+                    "clamp 2", "C=133", "storage offset")
 #: the nine golden checks of tests/test_streaming.py: capture, the
 #: reference's frames, StreamingDemodulator options
 TRACK_GOLDENS = (("bert3", "bert3.frames", {}),
@@ -2170,17 +2179,68 @@ def track_inputs(channels: int, dev):
     return x, nv, state
 
 
-def hold_track(x, nv, state, what: str):
-    """track_symbols on the card against its twin (on the host) on the same
-    inputs: n_sym, samples_used and sym_valid equal, soft and the state
-    within TRACK_RTOL.  Returns (the kernel's outputs, the largest soft
-    difference, the twin's host ms)."""
+def track_edge_case(name: str, dev):
+    """track_symbols inputs (samples, n_valid, state) on dev at an edge of
+    the kernel's sample ring (TRACK_EDGE_CASES), from its CFO estimate:
+      whole capture   one launch over all 697,618 samples of drift, as
+                      rx_batch runs it (1,363 tiles of 512)
+      cap 64, 100     two channels of bert3 with n_valid (0, 49) and
+                      (49, 100): none (cap 64) or one channel (cap 100)
+                      steps, in one tile cut at cap
+      clamp 1, 2      bert3 cut where symbol 60, the last active one, has
+                      its window base clamped at cap - 64 (pos - 11 above
+                      it by one and by two samples)
+      C=133           track_inputs at 133 channels, more blocks than SMs
+      storage offset  track_inputs at 7 channels as a view 5 samples into
+                      its storage"""
+    import torch
+    from opv_tpu_torch.config import CONFIG
+    from opv_tpu_torch.ops import track_symbols as ts
+    from opv_tpu_torch.rx.cfo import estimate_cfo
+    from opv_tpu_torch.rx.demod import loop_state_init, pack_state
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def fresh(x, c=1):
+        return pack_state(loop_state_init(estimate_cfo(x).reshape(1).expand(c),
+                                          channels=c, device=dev))
+
+    if name in ("C=133", "storage offset"):
+        x, nv, state = track_inputs(133 if name == "C=133" else 7, dev)
+        if name == "storage offset":
+            buf = torch.zeros(x.numel() + 5, dtype=x.dtype, device=dev)
+            x = buf[5:].view(x.shape).copy_(x)
+        return x, nv, state
+    if name == "whole capture":
+        x = torch.from_numpy(capture("drift")).to(dev)
+        return x[None], torch.tensor([x.shape[0]], **i32), fresh(x)
+    first = torch.from_numpy(capture("bert3")[:SPF]).to(dev)
+    if name.startswith("cap"):
+        cap = int(name.split()[1])
+        nv = (0, 49) if cap == 64 else (49, 100)
+        return (torch.stack([first[:cap], first[7:7 + cap]]),
+                torch.tensor(nv, **i32), fresh(first, 2))
+    # symbol 60 at p = samples_used after 60 steps; cap = p + 52 (p + 51)
+    # puts its base p - 11 one (two) above cap - 64 and keeps it active
+    state = fresh(first)
+    p = int(ts.track_symbols_reference(
+        first[None].cpu(), torch.tensor([SPF], dtype=torch.int32),
+        state.cpu(), CONFIG.afc_alpha, 60)[3][0])
+    cap = p + (52 if name == "clamp 1" else 51)
+    return first[None, :cap], torch.tensor([cap], **i32), state
+
+
+def hold_track(x, nv, state, what: str, run=None):
+    """track_symbols on the card (`run`, the package's kernel by default)
+    against its twin (on the host) on the same inputs: n_sym, samples_used
+    and sym_valid equal, soft and the state within TRACK_RTOL.  Returns
+    (the kernel's outputs, the largest soft difference, the twin's host
+    ms)."""
     import torch
     from opv_tpu_torch.config import CONFIG
     from opv_tpu_torch.ops import track_symbols as ts
     from opv_tpu_torch.rx.demod import max_symbols
     maxs = max_symbols(x.shape[1])
-    got = ts.track_symbols_cuda(x, nv, state, CONFIG.afc_alpha, maxs)
+    got = (run or ts.track_symbols_cuda)(x, nv, state, CONFIG.afc_alpha, maxs)
     t0 = time.perf_counter()
     want = ts.track_symbols_reference(x.cpu(), nv.cpu(), state.cpu(),
                                       CONFIG.afc_alpha, maxs)
@@ -2272,15 +2332,24 @@ def sync_bound(channels: int, steps: int, int_ops_per_s: float):
 
 def tracking_kernels(dev, card, int_ops_per_s: float):
     """(a) track_symbols and sync_scan against their twins at C = 1 and
-    C = TRACK_CHANNELS on one chunk of the golden mix, and their times."""
+    C = TRACK_CHANNELS on one chunk of the golden mix, and their times;
+    track_symbols held on TRACK_EDGE_CASES too."""
     import torch
     from opv_tpu_torch.config import CONFIG
+    from opv_tpu_torch.ops import build
     from opv_tpu_torch.ops import sync_scan as sc
     from opv_tpu_torch.ops import track_symbols as ts
     from opv_tpu_torch.rx.demod import max_symbols
     from opv_tpu_torch.rx.sync import sync_correlate
     eb = CONFIG.encoded_bits
     maxs = max_symbols(SPF)
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    entry = False
+    for line in build.BUILD_INFO["ptxas"].splitlines():
+        if "Compiling entry function" in line:
+            entry = "track_symbols" in line
+        elif entry and ("registers" in line or "spill" in line):
+            log(f"[tracking] (a) track_symbols ptxas: {line.strip()}")
     rows = {}
     for c in (1, TRACK_CHANNELS):
         x, nv, state = track_inputs(c, dev)
@@ -2289,6 +2358,8 @@ def tracking_kernels(dev, card, int_ops_per_s: float):
                                                    CONFIG.afc_alpha, maxs),
                      TRACK_REPS)
         nsym = int(valid.sum())
+        # ms as cycles a symbol of one channel's chain, at the max SM clock
+        cyc = 1e3 * sm_mhz * c / nsym
         bound_ms, bound_by = track_bound(nsym, int(nv.sum()), c, maxs)
         # sync_scan on the card's soft, from a zero history and HUNTING
         hist = torch.zeros((c, eb), dtype=torch.float64, device=dev)
@@ -2312,13 +2383,22 @@ def tracking_kernels(dev, card, int_ops_per_s: float):
         log(f"[tracking] (a) C={c}: track_symbols n_sym, samples_used and "
             f"sym_valid equal to the twin's, soft within {err:.3e} "
             f"(max|soft| {float(soft.abs().max()):.3e}); {nsym} symbols: "
-            f"kernel {ms:.3f} ms per chunk ({air_ms:.0f} ms of air, "
-            f"{air_ms / ms:.1f}x real time), twin {twin_ms:.0f} ms (host), "
+            f"kernel {ms:.3f} ms per chunk ({ms * cyc:.0f} cycles a symbol "
+            f"as ms x the max SM clock, {sm_mhz:.0f} MHz; {air_ms:.0f} ms "
+            f"of air, {air_ms / ms:.1f}x real time), "
+            f"twin {twin_ms:.0f} ms (host), "
             f"bound {bound_ms:.4f} ms ({bound_by}); sync_scan bit-identical "
             f"({int(ready.sum())} frames ready, "
             f"{int((events > 0).sum())} events): kernel {sync_ms:.4f} ms, "
             f"twin {sync_twin_ms:.0f} ms, bound {s_bound:.5f} ms ({s_by}) "
             f"({card})")
+    for name in TRACK_EDGE_CASES:
+        x, nv, state = track_edge_case(name, dev)
+        (_, valid, _, used), err, twin_ms = hold_track(x, nv, state, name)
+        log(f"[tracking] (a) track_symbols on {name} ({tuple(x.shape)}, "
+            f"n_valid {nv.tolist()[:4]}): n_sym {valid.sum(1).tolist()[:4]} "
+            f"and samples_used {used.tolist()[:4]} equal to the twin's, soft "
+            f"within {err:.3e} (twin {twin_ms:.0f} ms)")
     stress = sync_stress(TRACK_CHANNELS, maxs, dev)
     (_, _, ready, _, events, _, _), _ = hold_sync(*stress, "stress")
     counts = np.bincount(events.cpu().numpy().ravel(), minlength=6).tolist()

@@ -14,28 +14,73 @@
 // What bounds it on the card: the serial chain, not bytes or operations.
 // Each symbol's window position, LO phase and frequency depend on the
 // last symbol's TED and AFC update, so a channel's symbols cannot be split
-// across threads.  Per symbol the work is ~6,000 float64 operations (80
-// sincos, 120 interpolations, 240 complex multiply-adds, one atan2) over
+// across threads.  Per symbol the work is ~6,000 float64 operations over
 // 16 bytes per input sample: a 64-channel chunk of 2,168 symbols is ~0.8
-// GFLOP and ~93 MB, under 0.03 ms at the card's float64 and HBM rates,
-// while one thread walking the chain would take ~20 us per symbol.
-// The design: one warp per channel.  Lane l takes taps l and l + 32 (lanes
-// 0-7 two taps, the rest one), so the 80 sincos and the interpolations run
-// side by side, and a butterfly __shfl_xor_sync reduction leaves the six
-// complex sums in every lane.  An xor butterfly adds each pair in both
-// lanes, and IEEE addition commutes, so every lane holds the same bits;
-// every lane then does the scalar update itself (TED, timing loop, atan2,
-// AFC, advance) and the warp stays uniform with no broadcast.  The window
-// (1 KB a symbol) stays in L1.  The chain per symbol is one sincos, a
-// 5-level reduction, an atan2 and two divides: ~1-2 us, so a 40 ms chunk of
-// 2,168 symbols takes a few ms for any channel count up to one warp per
-// SM (one warp per block, one block per channel).
+// GFLOP and ~93 MB, under 0.03 ms at the card's float64 and HBM rates.
+// What is left is latency.  Around the AFC loop, from one symbol's sums
+// to the next's, the twin's arithmetic has 7 multiplies, 12 adds, 2
+// divides, a sincos and an atan2 in series; at the card's measured
+// latencies (8.2, 8.2, 111, 189 and 342 cycles) that is ~909 cycles a
+// symbol, a floor for any design (the timing loop's is ~320).
+//
+// Measured with scripts/track_sweep.py (an H100 SXM at 700 W; cycles a
+// symbol from clock64(): stage stamps in a copy of the kernel, which
+// serialise the stages, and one span over the loop in another): the
+// earlier one-warp-per-channel design (commit b8aea75) spends ~1,450 on
+// its window loads at 1 channel and ~2,300 at 64 (one L2/HBM miss a
+// symbol), ~870 on sincos (lanes 0-7 run two taps), ~790 on the
+// reduction and ~1,450 on the scalar tail: a span of 4,110-4,990.  This
+// design's span is ~2,240 at any width: sincos ~490, reduction
+// (products, shuffles, the cross-warp sum) ~680, then the AFC (~1,030)
+// beside the timing update and window (~940), ~2.5x the floor; the rest
+// is the shuffles, barriers and shared-memory trips that spread a symbol
+// over three warps.
+//
+// The design, one block of three warps per channel:
+// - The channel's samples stream through a ring of kRing tiles of kTile
+//   complex128 in shared memory, each filled by one 1-D TMA bulk copy
+//   (cp.async.bulk) that completes on the tile's mbarrier.  pos advances
+//   38-42 samples a symbol and a window spans 64, so a window touches at
+//   most two tiles and the next window at most the tile after; warp 2's
+//   first thread refills a slot as soon as the windows have left its
+//   tile, kRing - 1 tiles ahead of the chain, and no sample load waits on
+//   device memory.
+// - Thread t < 40 (warps 0-1) runs tap t: two sincos and six complex
+//   multiply-adds, one tap per thread.  Each of the two warps reduces its
+//   twelve sums by a reduce-scatter butterfly (16 slots, 8+4+2+1+1 64-bit
+//   shuffles), lanes write their slot to shared memory, and after a named
+//   barrier every thread adds the two warps' partials in warp order, so
+//   all hold the same bits.
+// - The tails run side by side: warp 0 the AFC (its LO phases and
+//   increments go to warp 1 through shared memory); warps 1 and 2 the
+//   timing update (the same bits in both) and then the next symbol's
+//   window, warp 1 taps 0-31 and warp 2 taps 32-39, into shared memory
+//   for the tap threads.  A second named barrier closes the symbol.
+// Tried and dropped (cycles a symbol): the window staged by the tap
+// threads themselves between the timing update and the AFC tail (3,335:
+// the slow-path branches of the divides and atan2 keep the compiler from
+// interleaving the two); the AFC tail first (3,112); two warps, the
+// timing update and the whole window on warp 1 (2,333: six
+// interpolations a lane outlast the AFC); in the first of these, the
+// reduce-scatter as a loop (3,829 against 3,335: its slots went to local
+// memory); a window written to shared memory as it is interpolated (a
+// store ahead of the next ring load holds that load back, so the
+// interpolations run one after another); floor() and its int cast as one
+// add rounded down (-6 of ~2,230); atan2 as CUDA's own polynomial
+// evaluated by Estrin's scheme (-62, with the add -86: it takes fused
+// multiply-adds into the loop, which the rounding rule below keeps out,
+// and a host emulation put it within 1.8 ulp, CUDA's atan2 within 1.65).
+//
+// The sums: each warp adds its lanes in a fixed butterfly order and the
+// warps are added in a fixed order, with no atomics, so a run's bits do not
+// vary; they differ from the twin's matmul order by ~1e-15 relative.
 //
 // Rounding: nvcc would contract a*b + c into a fused multiply-add, which
 // rounds once where the host rounds twice and moves the loop's trajectory
 // away from the twin's.  The interpolation, the products and the scalar
-// update are written with __dmul_rn / __dadd_rn / __dsub_rn, which never
-// contract; sincos and atan2 differ from the host's libm by an ulp or so.
+// update are written with __dmul_rn / __dadd_rn / __dsub_rn / __ddiv_rn,
+// which never contract; CUDA's sincos and atan2 differ from the host's
+// libm by an ulp or two.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +95,23 @@ constexpr int kStateWidth = 9;
 constexpr double kPi = 3.14159265358979323846;  // Python's math.pi
 constexpr double kTwoPi = 2.0 * kPi;            // 2.0 * math.pi, exact
 constexpr unsigned kFull = 0xffffffffu;
+
+// warp 0: taps 0-31 and the AFC; warp 1: taps 32-39, the timing loop and
+// the window of taps 0-31; warp 2: the timing loop, the window of taps
+// 32-39 and the ring's bulk copies
+constexpr int kWarps = 3;
+constexpr int kTapWarps = 2;            // the warps that run taps
+constexpr int kThreads = 32 * kWarps;   // thread t < kSps runs tap t
+constexpr int kSums = 12;               // on/early/late x tone 1/2, re/im
+constexpr int kSlots = 16;              // kSums padded for the butterfly
+constexpr int kTile = 512;              // samples per ring tile (8 KB)
+constexpr int kRing = 4;                // tiles in the ring (32 KB)
+constexpr unsigned kRingMask = kTile * kRing - 1;
+// a window spans 64 samples and moves <= 42 a symbol, so the next
+// window's last tile is at most one past this window's first
+static_assert(kTile >= kWin + 42 && kRing >= 2, "ring too small");
+static_assert((kTile * kRing & (kTile * kRing - 1)) == 0, "ring not 2^n");
+static_assert(kSps > 32 && kSps <= 32 * kTapWarps, "one tap per thread");
 
 struct Params {
   double fd, fs, sr, alpha_t, beta_t, tf_clamp, adj_clamp, afc_clamp, afc_alpha;
@@ -70,19 +132,8 @@ __device__ __forceinline__ double cnorm(double re, double im) {
   return __dadd_rn(__dmul_rn(re, re), __dmul_rn(im, im));
 }
 
-// Linear interpolation of the window w at rel: clip to [0, 63], index
-// pinned at 62, v0 (1 - f) + v1 f with each product rounded.
-__device__ __forceinline__ double2 interp(const double2* __restrict__ w,
-                                          double rel) {
-  double relc = clip(rel, 0.0, kWin - 1.0);
-  int i0 = static_cast<int>(floor(relc));
-  i0 = i0 > kWin - 2 ? kWin - 2 : i0;
-  const double f = __dsub_rn(relc, static_cast<double>(i0));
-  const double g = __dsub_rn(1.0, f);
-  const double2 v0 = w[i0];
-  const double2 v1 = w[i0 + 1];
-  return make_double2(__dadd_rn(__dmul_rn(v0.x, g), __dmul_rn(v1.x, f)),
-                      __dadd_rn(__dmul_rn(v0.y, g), __dmul_rn(v1.y, f)));
+__device__ __forceinline__ double lo_inc(double fd, double foff, double fs) {
+  return __ddiv_rn(__dmul_rn(kTwoPi, __dadd_rn(fd, foff)), fs);
 }
 
 // acc += s * conj(lo): (sr co + si sn, si co - sr sn), as the reference's
@@ -93,126 +144,313 @@ __device__ __forceinline__ void cmac(double2 s, double co, double sn,
   im = __dadd_rn(im, __dadd_rn(__dmul_rn(s.x, -sn), __dmul_rn(s.y, co)));
 }
 
-__global__ void __launch_bounds__(32)
+// ---- the ring: mbarriers and 1-D bulk copies ------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Tile j (samples [j kTile, j kTile + n)) into its slot, completing on
+// the slot's mbarrier.  n * 16 bytes is a multiple of 16, as a bulk copy
+// needs; the source is 16-byte aligned (complex128).
+__device__ __forceinline__ void issue_tile(double2* ring, uint64_t* full,
+                                           const double2* s, long long cap,
+                                           long long j) {
+  const int slot = static_cast<int>(j % kRing);
+  const long long left = cap - j * kTile;
+  const uint32_t bytes = static_cast<uint32_t>(
+      (left < kTile ? left : kTile) * sizeof(double2));
+  const uint32_t bar = smem_addr(full + slot);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(ring + slot * kTile)), "l"(s + j * kTile), "r"(bytes),
+        "r"(bar)
+      : "memory");
+}
+
+// Wait until tile j has landed: use j / kRing of its slot's mbarrier.
+__device__ __forceinline__ void wait_tile(uint64_t* full, long long j) {
+  const uint32_t bar = smem_addr(full + j % kRing);
+  const uint32_t parity = static_cast<uint32_t>((j / kRing) & 1);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{ .reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// ---- the window -------------------------------------------------------------
+
+// Linear interpolation of the window at base (a sample index, the ring
+// holding it) at rel: clip to [0, 63], index pinned at 62, v0 (1 - f) +
+// v1 f with each product rounded.
+__device__ __forceinline__ double2 interp(const double2* ring, unsigned base,
+                                          double rel) {
+  const double relc = clip(rel, 0.0, kWin - 1.0);
+  double i0d = floor(relc);
+  int i0 = static_cast<int>(i0d);
+  i0d = i0d > kWin - 2.0 ? kWin - 2.0 : i0d;
+  i0 = i0 > kWin - 2 ? kWin - 2 : i0;
+  const double f = __dsub_rn(relc, i0d);
+  const double g = __dsub_rn(1.0, f);
+  const unsigned j = base + static_cast<unsigned>(i0);
+  const double2 v0 = ring[j & kRingMask];
+  const double2 v1 = ring[(j + 1) & kRingMask];
+  return make_double2(__dadd_rn(__dmul_rn(v0.x, g), __dmul_rn(v1.x, f)),
+                      __dadd_rn(__dmul_rn(v0.y, g), __dmul_rn(v1.y, f)));
+}
+
+// Tap i's on-time, early and late samples of the symbol at pos/mu into
+// win[i] (rows kSps-63 take the taps past the last, a store and no
+// branch).  First waits for the tiles of the window that this thread has
+// not seen land yet (`seen` counts them).
+__device__ __forceinline__ void stage(const double2* ring, uint64_t* full,
+                                      long long& seen, long long last_base,
+                                      int pos, double mu, int i,
+                                      double2 first, double2 (*win)[3]) {
+  long long base = pos - 11;
+  base = base < 0 ? 0 : (base > last_base ? last_base : base);
+  for (const long long top = (base + kWin - 1) / kTile; seen <= top; ++seen)
+    wait_tile(full, seen);
+  const unsigned b = static_cast<unsigned>(base);
+  const double offs =
+      __dadd_rn(static_cast<double>(pos - static_cast<int>(base)), mu);
+  const double rel = __dadd_rn(offs, static_cast<double>(i));
+  // all three in registers before any store: a store to win ahead of a
+  // ring load would hold the load back (both are shared memory)
+  const double2 s_on = interp(ring, b, rel);
+  double2 s_e = interp(ring, b, __dsub_rn(rel, 10.0));
+  const double2 s_l = interp(ring, b, __dadd_rn(rel, 10.0));
+  if (pos + i < kEl) s_e = first;
+  win[i][0] = s_on;
+  win[i][1] = s_e;
+  win[i][2] = s_l;
+}
+
+// One level of the reduce-scatter: the lane keeps half of its first 2 H
+// slots, sends the other half to its partner (lane ^ 2 H) and adds what
+// it receives.  A template per level, so v stays in registers.
+template <int H>
+__device__ __forceinline__ void scatter_level(double (&v)[kSlots], int lane) {
+  const bool upper = lane & (2 * H);
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const double keep = upper ? v[H + j] : v[j];
+    const double send = upper ? v[j] : v[H + j];
+    v[j] = __dadd_rn(keep, __shfl_xor_sync(kFull, send, 2 * H));
+  }
+}
+
+// The warp's sum of v[s] over its 32 lanes for the slot s = (lane >> 1) &
+// 15 this lane ends with: each sum is formed in one fixed order, and the
+// last level's two lanes add the same pair.
+__device__ __forceinline__ double reduce_scatter(double (&v)[kSlots],
+                                                 int lane) {
+  static_assert(kSlots == 16, "four halving levels");
+  scatter_level<8>(v, lane);
+  scatter_level<4>(v, lane);
+  scatter_level<2>(v, lane);
+  scatter_level<1>(v, lane);
+  return __dadd_rn(v[0], __shfl_xor_sync(kFull, v[0], 1));
+}
+
+__device__ __forceinline__ void named_barrier(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 track_symbols_kernel(const double2* __restrict__ samples, long long cap,
                      const int* __restrict__ n_valid,
                      const double* __restrict__ state_in, int maxs, Params p,
                      double* __restrict__ soft, uint8_t* __restrict__ valid,
                      double* __restrict__ state_out, int* __restrict__ used) {
+  __shared__ __align__(128) double2 ring[kTile * kRing];
+  // the symbol's samples by tap (rows kSps-63: warp 2's idle lanes)
+  __shared__ __align__(16) double2 win[2 * 32][3];
+  __shared__ __align__(16) double part[kTapWarps][kSlots];
+  __shared__ __align__(16) double lo[4];  // the symbol's ph1, ph2, inc1, inc2
+  __shared__ int go;                      // the symbol is active
+  __shared__ __align__(8) uint64_t full[kRing];
+
   const int ch = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const bool tap = tid < kSps;
+  const double di = static_cast<double>(tid);
   const double2* s = samples + static_cast<long long>(ch) * cap;
   double* soft_row = soft + static_cast<long long>(ch) * maxs;
   uint8_t* valid_row = valid + static_cast<long long>(ch) * maxs;
   const double* st = state_in + ch * kStateWidth;
+  const long long tiles = (cap + kTile - 1) / kTile;
+  const long long last_base = cap - kWin;
+  // the first thread of the window warps (1, 2) and of warp 2, which
+  // issues the bulk copies
+  constexpr int kTimer = 32, kProducer = 64;
+  const int stage_tap = tid - 32;  // warps 1-2: the tap whose window it stages
 
+  long long issued = 0;  // tiles issued (the producer)
+  if (tid == kProducer) {
+    for (int r = 0; r < kRing; ++r) bar_init(full + r);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (; issued < tiles && issued < kRing; ++issued)
+      issue_tile(ring, full, s, cap, issued);
+  }
   double mu = st[0], ph1 = st[1], ph2 = st[2], foff = st[3], tfreq = st[4];
   double pc1r = st[5], pc1i = st[6], pc2r = st[7], pc2i = st[8];
   const double2 first = s[0];
   const int lim = n_valid[ch] - kGate;
-  const long long last_base = cap - kWin;
+  double inc1 = lo_inc(-p.fd, foff, p.fs);
+  double inc2 = lo_inc(p.fd, foff, p.fs);
+  long long seen = 0;  // tiles this thread has waited for
   int pos = 0;
   int k = 0;
-  for (; k < maxs && pos < lim; ++k) {
-    const double inc1 = __ddiv_rn(__dmul_rn(kTwoPi, __dadd_rn(-p.fd, foff)), p.fs);
-    const double inc2 = __ddiv_rn(__dmul_rn(kTwoPi, __dadd_rn(p.fd, foff)), p.fs);
-    long long base = pos - 11;
-    base = base < 0 ? 0 : (base > last_base ? last_base : base);
-    const double2* w = s + base;
-    const double offs = __dadd_rn(static_cast<double>(pos - base), mu);
-
-    // six complex correlators: on, early, late x tone 1, tone 2
-    double a[12] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  bool run = maxs > 0 && pos < lim;
+  __syncthreads();  // the barriers and the first tiles before any wait
+  if (run && warp >= 1)
+    stage(ring, full, seen, last_base, pos, mu, stage_tap, first, win);
+  __syncthreads();
+  while (run) {
+    if (warp < kTapWarps) {
+      // six complex correlators: on, early, late x tone 1, tone 2
+      double v[kSlots];
 #pragma unroll
-    for (int rep = 0; rep < 2; ++rep) {
-      const int i = lane + 32 * rep;
-      if (i < kSps) {
-        const double di = static_cast<double>(i);
-        const double rel = __dadd_rn(offs, di);
-        const double2 s_on = interp(w, rel);
-        const double2 s_e = pos + i < kEl ? first : interp(w, __dsub_rn(rel, 10.0));
-        const double2 s_l = interp(w, __dadd_rn(rel, 10.0));
+      for (int j = 0; j < kSlots; ++j) v[j] = 0.0;
+      if (tap) {
+        const double2 s_on = win[tid][0], s_e = win[tid][1], s_l = win[tid][2];
         double sn1, co1, sn2, co2;
         sincos(__dadd_rn(ph1, __dmul_rn(di, inc1)), &sn1, &co1);
         sincos(__dadd_rn(ph2, __dmul_rn(di, inc2)), &sn2, &co2);
-        cmac(s_on, co1, sn1, a[0], a[1]);
-        cmac(s_on, co2, sn2, a[2], a[3]);
-        cmac(s_e, co1, sn1, a[4], a[5]);
-        cmac(s_e, co2, sn2, a[6], a[7]);
-        cmac(s_l, co1, sn1, a[8], a[9]);
-        cmac(s_l, co2, sn2, a[10], a[11]);
+        cmac(s_on, co1, sn1, v[0], v[1]);
+        cmac(s_on, co2, sn2, v[2], v[3]);
+        cmac(s_e, co1, sn1, v[4], v[5]);
+        cmac(s_e, co2, sn2, v[6], v[7]);
+        cmac(s_l, co1, sn1, v[8], v[9]);
+        cmac(s_l, co2, sn2, v[10], v[11]);
       }
+      const double mine = reduce_scatter(v, lane);
+      if (!(lane & 1)) part[warp][(lane >> 1) & (kSlots - 1)] = mine;
     }
+    named_barrier(1);
+    double a[kSums];
 #pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) {
-#pragma unroll
-      for (int j = 0; j < 12; ++j)
-        a[j] = __dadd_rn(a[j], __shfl_xor_sync(kFull, a[j], o));
+    for (int j = 0; j < kSums; j += 2) {
+      const double2 w0 = *reinterpret_cast<const double2*>(&part[0][j]);
+      const double2 w1 = *reinterpret_cast<const double2*>(&part[1][j]);
+      a[j] = __dadd_rn(w0.x, w1.x);
+      a[j + 1] = __dadd_rn(w0.y, w1.y);
     }
-
-    // the scalar update, identical in every lane
     const double e1 = cnorm(a[0], a[1]);
     const double e2 = cnorm(a[2], a[3]);
     const bool f1_dom = e1 > e2;
-    const double ee = f1_dom ? cnorm(a[4], a[5]) : cnorm(a[6], a[7]);
-    const double el = f1_dom ? cnorm(a[8], a[9]) : cnorm(a[10], a[11]);
-    const double ted = __ddiv_rn(__dsub_rn(el, ee),
-                                 __dadd_rn(__dadd_rn(el, ee), 1e-10));
-    const double tf_n = clip(__dadd_rn(tfreq, __dmul_rn(p.beta_t, ted)),
-                             -p.tf_clamp, p.tf_clamp);
-    const double adj = clip(__dadd_rn(__dmul_rn(p.alpha_t, ted), tf_n),
-                            -p.adj_clamp, p.adj_clamp);
-    // dom * conj(prev)
-    const double dr = f1_dom ? a[0] : a[2], di_ = f1_dom ? a[1] : a[3];
-    const double pr = f1_dom ? pc1r : pc2r, pi_ = f1_dom ? pc1i : pc2i;
-    const double zr = __dsub_rn(__dmul_rn(dr, pr), __dmul_rn(di_, -pi_));
-    const double zi = __dadd_rn(__dmul_rn(dr, -pi_), __dmul_rn(di_, pr));
-    const double ferr = __ddiv_rn(__dmul_rn(atan2(zi, zr), p.sr), kTwoPi);
-    if (k >= 1)
-      foff = clip(__dadd_rn(foff, __dmul_rn(p.afc_alpha, ferr)),
-                  -p.afc_clamp, p.afc_clamp);
-    ph1 = wrap(__dadd_rn(ph1, __dmul_rn(static_cast<double>(kSps), inc1)));
-    ph2 = wrap(__dadd_rn(ph2, __dmul_rn(static_cast<double>(kSps), inc2)));
-    const double t = __dadd_rn(mu, __dadd_rn(static_cast<double>(kSps), adj));
-    const double t_int = floor(t);
-    pos += static_cast<int>(t_int);
-    mu = __dsub_rn(t, t_int);
-    tfreq = tf_n;
-    pc1r = a[0]; pc1i = a[1]; pc2r = a[2]; pc2i = a[3];
-    if (lane == 0) {
-      soft_row[k] = __dsub_rn(e2, e1);
-      valid_row[k] = 1;
+
+    if (warp == 0) {
+      // the AFC: dom * conj(prev), its phase, the next LO increments
+      const double dr = f1_dom ? a[0] : a[2], di_ = f1_dom ? a[1] : a[3];
+      const double pr = f1_dom ? pc1r : pc2r, pi_ = f1_dom ? pc1i : pc2i;
+      const double zr = __dsub_rn(__dmul_rn(dr, pr), __dmul_rn(di_, -pi_));
+      const double zi = __dadd_rn(__dmul_rn(dr, -pi_), __dmul_rn(di_, pr));
+      const double ferr = __ddiv_rn(__dmul_rn(atan2(zi, zr), p.sr), kTwoPi);
+      if (k >= 1)
+        foff = clip(__dadd_rn(foff, __dmul_rn(p.afc_alpha, ferr)),
+                    -p.afc_clamp, p.afc_clamp);
+      ph1 = wrap(__dadd_rn(ph1, __dmul_rn(static_cast<double>(kSps), inc1)));
+      ph2 = wrap(__dadd_rn(ph2, __dmul_rn(static_cast<double>(kSps), inc2)));
+      inc1 = lo_inc(-p.fd, foff, p.fs);
+      inc2 = lo_inc(p.fd, foff, p.fs);
+      pc1r = a[0]; pc1i = a[1]; pc2r = a[2]; pc2i = a[3];
+      if (lane == 0) {
+        lo[0] = ph1; lo[1] = ph2; lo[2] = inc1; lo[3] = inc2;
+        soft_row[k] = __dsub_rn(e2, e1);
+        valid_row[k] = 1;
+      }
+    } else {
+      // the timing update (warps 1 and 2 alike), then the next symbol's
+      // window, beside the AFC
+      const double ee = f1_dom ? cnorm(a[4], a[5]) : cnorm(a[6], a[7]);
+      const double el = f1_dom ? cnorm(a[8], a[9]) : cnorm(a[10], a[11]);
+      const double ted = __ddiv_rn(__dsub_rn(el, ee),
+                                   __dadd_rn(__dadd_rn(el, ee), 1e-10));
+      tfreq = clip(__dadd_rn(tfreq, __dmul_rn(p.beta_t, ted)),
+                   -p.tf_clamp, p.tf_clamp);
+      const double adj = clip(__dadd_rn(__dmul_rn(p.alpha_t, ted), tfreq),
+                              -p.adj_clamp, p.adj_clamp);
+      const double t = __dadd_rn(mu, __dadd_rn(static_cast<double>(kSps), adj));
+      const double t_int = floor(t);
+      const int step = static_cast<int>(t_int);
+      pos += step;
+      mu = __dsub_rn(t, t_int);
+      if (tid == kProducer) {
+        // the windows have left the tiles below the next one's base:
+        // refill their slots (warps 1-2 read this symbol's window before
+        // the last barrier)
+        long long base = pos - 11;
+        base = base < 0 ? 0 : (base > last_base ? last_base : base);
+        for (const long long top = base / kTile + kRing;
+             issued < tiles && issued < top; ++issued)
+          issue_tile(ring, full, s, cap, issued);
+      }
+      const bool next = k + 1 < maxs && pos < lim;
+      if (next)
+        stage(ring, full, seen, last_base, pos, mu, stage_tap, first, win);
+      if (tid == kTimer) go = next;
     }
+    named_barrier(2);
+    run = go;
+    if (warp == 1) {
+      ph1 = lo[0]; ph2 = lo[1]; inc1 = lo[2]; inc2 = lo[3];
+    }
+    ++k;
   }
-  for (int j = k + lane; j < maxs; j += 32) {
+  for (int j = k + tid; j < maxs; j += kThreads) {
     soft_row[j] = 0.0;
     valid_row[j] = 0;
   }
-  if (lane == 0) {
-    double* so = state_out + ch * kStateWidth;
-    so[0] = mu; so[1] = ph1; so[2] = ph2; so[3] = foff; so[4] = tfreq;
+  double* so = state_out + ch * kStateWidth;
+  if (tid == 0) {
+    so[1] = ph1; so[2] = ph2; so[3] = foff;
     so[5] = pc1r; so[6] = pc1i; so[7] = pc2r; so[8] = pc2i;
+  }
+  if (tid == kTimer) {
+    so[0] = mu; so[4] = tfreq;
     used[ch] = pos;
+  }
+  if (tid == kProducer) {
+    // no copy may still be writing the ring when the block ends
+    for (; seen < issued; ++seen) wait_tile(full, seen);
   }
 }
 
 }  // namespace
 
-// samples: (channels, cap) complex128; n_valid: (channels,) int32;
-// state_in/state_out: (channels, 9) float64 (the LoopState row, see
-// ops/track_symbols.py); soft: (channels, maxs) float64; valid:
-// (channels, maxs) bool; used: (channels,) int32; params: 9 host doubles
-// (fd, fs, sr, alpha_t, beta_t, tf_clamp, adj_clamp, afc_clamp, afc_alpha).
-// Launches on `stream`; returns cudaGetLastError().
+// samples: (channels, cap) complex128, 16-byte aligned; n_valid:
+// (channels,) int32; state_in/state_out: (channels, 9) float64 (the
+// LoopState row, see ops/track_symbols.py); soft: (channels, maxs)
+// float64; valid: (channels, maxs) bool; used: (channels,) int32; params:
+// 9 host doubles (fd, fs, sr, alpha_t, beta_t, tf_clamp, adj_clamp,
+// afc_clamp, afc_alpha).  Launches on `stream`; returns cudaGetLastError().
 extern "C" int opv_track_symbols(const void* samples, long long cap,
                                  const void* n_valid, const void* state_in,
                                  int channels, int maxs, const double* params,
                                  void* soft, void* valid, void* state_out,
                                  void* used, void* stream) {
-  if (channels <= 0 || maxs < 0 || cap < kWin) return (int)cudaErrorInvalidValue;
+  if (channels <= 0 || maxs < 0 || cap < kWin ||
+      reinterpret_cast<uintptr_t>(samples) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   Params p{params[0], params[1], params[2], params[3], params[4],
            params[5], params[6], params[7], params[8]};
-  track_symbols_kernel<<<channels, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  track_symbols_kernel<<<channels, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double2*>(samples), cap,
       static_cast<const int*>(n_valid), static_cast<const double*>(state_in),
       maxs, p, static_cast<double*>(soft), static_cast<uint8_t*>(valid),

@@ -171,12 +171,11 @@ def track_symbols_reference(samples: torch.Tensor, n_valid: torch.Tensor,
     return out, sym_valid, new_state, used
 
 
-def track_symbols_cuda(samples: torch.Tensor, n_valid: torch.Tensor,
-                       state: torch.Tensor, afc_alpha: float, maxs: int):
-    """The kernel: one warp per channel, on samples' stream."""
-    if not samples.is_cuda:
-        raise ValueError("the CUDA track_symbols kernel needs a CUDA tensor")
-    _check(samples, n_valid, state, maxs)
+def launch(lib, samples: torch.Tensor, n_valid: torch.Tensor,
+           state: torch.Tensor, afc_alpha: float, maxs: int):
+    """One launch of `lib`'s opv_track_symbols on samples' stream (checked
+    CUDA tensors; no count; nothing to launch for no channels).  `lib` is
+    the port's library or another build exporting the same C entry point."""
     c, cap = samples.shape
     dev = samples.device
     samples = samples.contiguous()
@@ -187,15 +186,25 @@ def track_symbols_cuda(samples: torch.Tensor, n_valid: torch.Tensor,
     new_state = torch.empty((c, STATE_WIDTH), dtype=torch.float64, device=dev)
     used = torch.empty((c,), dtype=torch.int32, device=dev)
     if c:
-        lib = build.library()
         prm = (ctypes.c_double * 9)(*params(afc_alpha))
         err = lib.opv_track_symbols(
             samples.data_ptr(), cap, n_valid.data_ptr(), state.data_ptr(), c,
             maxs, prm, soft.data_ptr(), sym_valid.data_ptr(),
             new_state.data_ptr(), used.data_ptr(), build.stream_ptr(samples))
-        build.check(lib, err, "track_symbols")
-        track_symbols_cuda.launches += 1
+        build.check(build.library(), err, "track_symbols")
     return soft, sym_valid, new_state, used
+
+
+def track_symbols_cuda(samples: torch.Tensor, n_valid: torch.Tensor,
+                       state: torch.Tensor, afc_alpha: float, maxs: int):
+    """The kernel: a block of three warps per channel, on samples' stream."""
+    if not samples.is_cuda:
+        raise ValueError("the CUDA track_symbols kernel needs a CUDA tensor")
+    _check(samples, n_valid, state, maxs)
+    out = launch(build.library(), samples, n_valid, state, afc_alpha, maxs)
+    if samples.shape[0]:
+        track_symbols_cuda.launches += 1
+    return out
 
 
 track_symbols_cuda.launches = 0

@@ -4,7 +4,7 @@
 
 Every channel runs the complete feedback-loop pipeline, tuple for tuple
 the same as C independent StreamingDemodulators, but all channels advance
-in one launch of each kernel per chunk (track_symbols with a warp per
+in one launch of each kernel per chunk (track_symbols with a block per
 channel, sync_scan with a thread per channel, one Viterbi batch).
 
 Per-channel chunk boundaries are kept exactly for equal-rate channels

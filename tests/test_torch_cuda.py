@@ -20,8 +20,8 @@ from chip_smoke import (MODES_WEAK_GAIN, capture,  # noqa: E402
                         hold_sync, hold_track, impaired_feed, k4_chunks,
                         same_stream, same_tracking, same_wideband,
                         serve_eager, spy_kernels, stream_twin_checks,
-                        sync_stress, track_inputs, viterbi_inputs,
-                        wideband_k4)
+                        sync_stress, TRACK_EDGE_CASES, track_edge_case,
+                        track_inputs, viterbi_inputs, wideband_k4)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
 from opv_tpu_torch.ops import registry  # noqa: E402
@@ -415,6 +415,29 @@ def test_track_symbols_kernel_matches_twin(cuda_dev, channels):
                                         "awgn8", "dropout", "drift"),
                                        used.tolist())])[:channels]
     hold_track(nxt, nv, st, "second call")
+
+
+@pytest.mark.parametrize("name", TRACK_EDGE_CASES)
+def test_track_symbols_kernel_at_ring_edges(cuda_dev, name):
+    """The AFC/TED loop kernel against its twin where its shared-memory
+    sample ring meets an edge (chip_smoke.track_edge_case): a whole-capture
+    launch, caps below a tile with n_valid under the gate, a window
+    clamped at cap - 64, more blocks than SMs, a view at a storage
+    offset."""
+    x, nv, state = track_edge_case(name, cuda_dev)
+    (_, valid, st, used), _, _ = hold_track(x, nv, state, name)
+    n_sym = valid.sum(1).tolist()
+    if name == "cap 64":
+        assert n_sym == [0, 0] and used.tolist() == [0, 0]
+        assert torch.equal(st.cpu(), state.cpu())
+    elif name == "cap 100":
+        assert n_sym == [0, 2]
+    elif name.startswith("clamp"):
+        assert n_sym == [61]
+    elif name == "whole capture":
+        assert n_sym[0] > 17_000
+    else:
+        assert min(n_sym) >= 2160
 
 
 def test_sync_scan_kernel_matches_twin(cuda_dev):
