@@ -112,15 +112,24 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               bert3, cfo500, awgn10, awgn7, awgn8, dropout, drift (channel
               c: capture c % 7, from its CFO estimate) at C = 1 and 64:
               n_sym, samples_used and sym_valid equal, soft and the state
-              within TRACK_RTOL; sync_scan bit for bit on the card's
-              raw/norm and on a stress input reaching every transition;
-              both timed against the chunk's 40 ms of air and their bounds;
-              track_symbols' ms per chunk also as cycles a symbol (ms x
-              the max SM clock, not a clock64 count) and its ptxas
-              report; track_symbols held against the twin on the edges
-              of its sample ring (TRACK_EDGE_CASES: a whole-capture
-              launch, caps of 64 and 100, a window clamped at cap - 64,
-              133 channels, a view at a storage offset);
+              within TRACK_RTOL; both instantiations of sync_scan
+              (GivenSync: raw/norm given; SoftSync: the correlation as
+              its input stage, on the view soft_cat[:, 2121:]) bit for
+              bit on the card's soft, on stress inputs reaching every
+              transition (sync_stress, soft_stress) and on
+              SYNC_EDGE_CASES (tile edges, short rows, 133 channels, a
+              whole capture, int32 carries, a view 8 bytes off 16); all
+              timed against the chunk's 40 ms of air and their bounds,
+              SoftSync beside the two-step route (torch's sync_correlate,
+              then GivenSync); track_symbols' ms per chunk also as
+              cycles a symbol (ms x the max SM clock, not a clock64
+              count), the ptxas reports; track_symbols held against the
+              twin on the edges of its sample ring (TRACK_EDGE_CASES: a
+              whole-capture launch, caps of 64 and 100, a window clamped
+              at cap - 64, 133 channels, a view at a storage offset);
+              then rx/sync.py's two routes (sync_correlate + sync_scan,
+              sync_correlate_scan) on one chunk at 64 channels, equal
+              (the GivenSync path's launches are this run's);
               (b) rx_batch on the card: bert3.frames and raw3.bin byte for
               byte; StreamingDemodulator on the card: the nine golden
               checks of tests/test_streaming.py, every tuple equal to the
@@ -131,15 +140,17 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               channel equal to a single-channel StreamingDemodulator on the
               card, channels 0-6 the reference's frames; host ms per
               chunk, Msamples/s, the multiple of real time, the kernels'
-              device ms per chunk (torch.profiler), peak memory; (d)
+              device ms and device kernels per chunk (torch.profiler),
+              the port's kernels' launches per chunk, peak memory; (d)
               opv_demod batch -r -q (bert3, raw3) and -s -r -q (awgn8,
               dropout) in this process against the goldens, -s on bert3
               with the reference's five transition lines, and opv_modem -l
               without --fast as a process: echo p50/p95 beside phase 9's
               --fast numbers
  12. the kernels JSON line (launches: the main path's, for phase_track the
-     cli phase's opv_mod runs, for track_symbols and sync_scan the
-     tracking phase's; launches_stream: the stream phase's two runs;
+     cli phase's opv_mod runs, for track_symbols and sync_scan[SoftSync]
+     the tracking phase's (b)-(d), for sync_scan[GivenSync] its route's
+     in (a); launches_stream: the stream phase's two runs;
      launches_modes: the two pipelined runs of the modes phase;
      launches_cli: the cli phase's in-process runs; launches_wideband: the
      wideband phase's runs (b)-(e); launches_tracking: the tracking
@@ -226,6 +237,8 @@ CLI_ECHO_WARM = 10
 CLI_ECHO_FRAMES = 40
 CLI_PACING_S = 0.040
 CLI_TRACK_REPS = 5
+#: launches a sync_scan time averages (device_ms)
+SYNC_REPS = 50
 CLI_START_S = 120
 CLI_BIG_READ = 16
 REAL_TIME_MSPS = 2.168        # one channel's sample rate, Msamples/s
@@ -278,6 +291,8 @@ TRACK_RTOL = 1e-9
 #: above); bytes, metric and symbol index must be equal
 TRACK_Q_TOL = 1e-9
 TRACK_REPS = 5
+#: launches a sync_scan time averages (device_ms)
+SYNC_REPS = 50
 #: the inputs of track_edge_case: the edges of the kernel's sample ring
 TRACK_EDGE_CASES = ("whole capture", "cap 64", "cap 100", "clamp 1",
                     "clamp 2", "C=133", "storage offset")
@@ -302,6 +317,9 @@ TRACK_OPS_PER_SYMBOL = 40 * TRACK_OPS_PER_TAP + 12 * 5 + 60
 #: int32 operations per symbol of sync_scan's state machine (adds,
 #: compares, selects)
 SYNC_OPS_PER_SYMBOL = 30
+#: float64 operations per symbol of sync_scan's SoftSync input stage: 24
+#: adds to raw, 24 to the energy, one division
+SYNC_F64_OPS_PER_SYMBOL = 2 * 24 + 1
 
 
 def log(msg: str) -> None:
@@ -313,6 +331,24 @@ def cuda_ms(fn, reps: int) -> float:
     import torch
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches (one warm-up first),
+    with a ~25 ms sleep kernel ahead of the start event: the host queues
+    every launch meanwhile, so a kernel shorter than its launch's host
+    cost is timed on the device alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -2265,22 +2301,51 @@ def hold_track(x, nv, state, what: str, run=None):
     return got, err, twin_ms
 
 
-def hold_sync(raw, norm, valid, ints, q, what: str):
-    """sync_scan on the card against its twin, every output bit for bit.
-    Returns (the kernel's outputs, the twin's host ms)."""
+SYNC_OUTPUTS = ("ints", "sync_q", "ready", "q", "events", "ev_misses",
+                "ev_frames", "raw", "norm")
+
+
+def same_sync(got, want, what: str, names=SYNC_OUTPUTS) -> None:
+    """Every output of the sync_scan kernel (named `names`) equal to its
+    twin's, bit for bit (the float64 ones compared as bytes)."""
     import torch
+
+    def bits(t):
+        t = t.cpu()
+        return t.view(torch.uint8) if t.dtype == torch.float64 else t
+    bad = [n for n, a, b in zip(names, got, want)
+           if a.shape != b.shape or not torch.equal(bits(a), bits(b))]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"[tracking] {what}: sync_scan differs from the "
+                             f"twin in {bad}")
+
+
+def hold_sync(raw, norm, valid, ints, q, what: str, run=None):
+    """sync_scan on given raw/norm (GivenSync; `run`, the package's kernel
+    by default) against its twin, every output bit for bit.  Returns (the
+    kernel's outputs, the twin's host ms)."""
     from opv_tpu_torch.ops import sync_scan as sc
-    got = sc.sync_scan_cuda(raw, norm, valid, ints, q)
+    got = (run or sc.sync_scan_cuda)(raw, norm, valid, ints, q)
     t0 = time.perf_counter()
     want = sc.sync_scan_reference(raw.cpu(), norm.cpu(), valid.cpu(),
                                   ints.cpu(), q.cpu())
     twin_ms = (time.perf_counter() - t0) * 1e3
-    names = ("ints", "sync_q", "ready", "q", "events", "ev_misses",
-             "ev_frames")
-    bad = [n for n, a, b in zip(names, got, want) if not torch.equal(a.cpu(), b)]
-    if bad:
-        raise AssertionError(f"[tracking] {what}: sync_scan differs from the "
-                             f"twin in {bad}")
+    same_sync(got, want, f"{what} (GivenSync)")
+    return got, twin_ms
+
+
+def hold_sync_soft(soft_ext, valid, ints, q, what: str, run=None):
+    """sync_scan with the correlation as its input stage (SoftSync; `run`,
+    the package's kernel by default) against sync_correlate and the twin,
+    every output bit for bit, raw and norm too.  Returns (the kernel's
+    outputs, the twins' host ms)."""
+    from opv_tpu_torch.ops import sync_scan as sc
+    got = (run or sc.sync_correlate_scan_cuda)(soft_ext, valid, ints, q)
+    t0 = time.perf_counter()
+    want = sc.sync_correlate_scan_reference(soft_ext.cpu(), valid.cpu(),
+                                            ints.cpu(), q.cpu())
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    same_sync(got, want, f"{what} (SoftSync)")
     return got, twin_ms
 
 
@@ -2296,20 +2361,154 @@ def sync_stress(channels: int, steps: int, dev):
     norm = rng.choice([0.5, 0.7, 0.75, 0.85, 1.0], (channels, steps),
                       p=[0.3, 0.05, 0.3, 0.05, 0.3])
     valid = (np.arange(steps) % 7 != 6)[None].repeat(channels, 0)
-    ints = np.zeros((channels, 6), np.int32)
-    ints[:, 0] = np.arange(channels) % 3
-    ints[:, 1] = rng.integers(0, 2168, channels)
-    ints[:, 2] = rng.integers(0, 5, channels)
-    # every 6th channel LOCKED on its last miss, its next check a miss
-    lose = np.arange(channels) % 6 == 2
-    ints[lose, 2] = 4
-    norm[lose] = 0.5
-    ints[:, 3] = np.arange(channels) % 2
-    ints[:, 4] = np.where(np.arange(channels) % 5 == 0, (1 << 30) - 3, 100)
+    ints = _stress_ints(channels, rng)
+    norm[np.arange(channels) % 6 == 2] = 0.5
     f64 = dict(dtype=torch.float64, device=dev)
     return (torch.tensor(raw, **f64), torch.tensor(norm, **f64),
             torch.tensor(valid, device=dev), torch.tensor(ints, device=dev),
             torch.zeros(channels, **f64))
+
+
+def _stress_ints(channels: int, rng) -> np.ndarray:
+    """Start carries in every state: sss anywhere in a frame, some misses,
+    every 6th channel LOCKED on its 4th miss, half collecting, every 5th
+    total 3 below the 2^30 cap."""
+    ints = np.zeros((channels, 6), np.int32)
+    ints[:, 0] = np.arange(channels) % 3
+    ints[:, 1] = rng.integers(0, 2168, channels)
+    ints[:, 2] = rng.integers(0, 5, channels)
+    ints[np.arange(channels) % 6 == 2, 2] = 4
+    ints[:, 3] = np.arange(channels) % 2
+    ints[:, 4] = np.where(np.arange(channels) % 5 == 0, (1 << 30) - 3, 100)
+    return ints
+
+
+def plant_sync(row: np.ndarray, t: int, amp: float, flips: int = 0) -> None:
+    """Write the sync word times amp at soft_ext[t:t + 24] (the window
+    symbol t correlates), its first `flips` taps negated: norm 1 - flips/12
+    (0.83 with 2, between the locked and hunt thresholds; 0.67 with 4,
+    below both)."""
+    from opv_tpu_torch.rx.sync import sync_pattern
+    w = sync_pattern() * amp
+    w[:flips] = -w[:flips]
+    row[t:t + 24] = w
+
+
+def soft_stress(channels: int, steps: int, dev, seed: int = 7):
+    """SoftSync inputs (soft_ext (C, 23 + S) float64, valid (C, S), ints
+    (C, 6), q (C,)) on dev that reach every transition through the
+    correlation: noise of sigma 20 with sync words planted mostly 2168
+    symbols apart (else 24, 2144 or at random), 0, 2 or 4 taps flipped,
+    at amplitudes 1000 (raw past the hunt's 5000), 100 (not) or 1 (energy
+    under the gate), a stretch of zeros a row; channels start as in
+    _stress_ints; ~3% of the symbols of every 4th channel invalid (its
+    checks drift off the words), and the last 1-40 of every row."""
+    import torch
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 20.0, (channels, steps + 23))
+    for c in range(channels):
+        t = int(rng.integers(0, 300))
+        while t < steps:
+            plant_sync(x[c], t, rng.choice([1000.0, 1000.0, 100.0, 1.0]),
+                       int(rng.choice([0, 0, 0, 2, 4])))
+            t += int(rng.choice([2168] * 6 + [24, 2144, rng.integers(1, 3000)]))
+        z = int(rng.integers(0, steps + 23))
+        x[c, z:z + 50] = 0.0
+    valid = (rng.random((channels, steps)) > 0.03) \
+        | (np.arange(channels) % 4 != 1)[:, None]
+    if steps:
+        for c in range(channels):
+            valid[c, steps - int(rng.integers(1, 41)):] = False
+    f64 = dict(dtype=torch.float64, device=dev)
+    return (torch.tensor(x, **f64), torch.tensor(valid, device=dev),
+            torch.tensor(_stress_ints(channels, rng), device=dev),
+            torch.zeros(channels, **f64))
+
+
+def sync_tile_edges(dev):
+    """SoftSync inputs where the kernel's 32-symbol tiles meet the events:
+    32 channels LOCKED and collecting, channel c's check at symbol c (lane
+    c of the first tile), every frame's emit at lane c 2144 symbols later
+    and its next check 24 after that (two events in one tile for c < 8):
+    sync OK on channels c % 4 = 0, 2, a flywheel miss then OKs on c % 4 =
+    1, a lost lock at the 5th miss on c % 4 = 3 with a new hunt hit 24
+    symbols after it; on channels c % 8 = 6 symbol c - 1 is invalid (the
+    check moves one lane on)."""
+    import torch
+    from opv_tpu_torch.config import CONFIG
+    eb, fs = CONFIG.encoded_bits, CONFIG.frame_symbols
+    c_n, steps = 32, 3 * fs
+    rng = np.random.default_rng(12)
+    x = rng.normal(0.0, 20.0, (c_n, steps + 23))
+    valid = np.ones((c_n, steps), bool)
+    ints = np.zeros((c_n, 6), np.int32)
+    for c in range(c_n):
+        ints[c] = (2, fs - 1 - c, 4 if c % 4 == 3 else 0, 1, 100, 7)
+        at = c + 1 if c % 8 == 6 else c
+        if c % 8 == 6:
+            valid[c, c - 1] = False
+        if c % 4 == 3:
+            plant_sync(x[c], at + 24, 1000.0)
+            at += 24 + eb
+        else:
+            plant_sync(x[c], at, 1000.0, 4 if c % 4 == 1 else 0)
+        while at + fs < steps:
+            at += fs
+            plant_sync(x[c], at, 1000.0)
+    f64 = dict(dtype=torch.float64, device=dev)
+    return (torch.tensor(x, **f64), torch.tensor(valid, device=dev),
+            torch.tensor(ints, device=dev), torch.zeros(c_n, **f64))
+
+
+#: the inputs of sync_edge_case: the edges of the sync_scan kernel's tiles
+#: and carries
+SYNC_EDGE_CASES = ("S=0", "S=1", "S=31", "S=32", "S=33", "C=133",
+                   "whole capture", "tile edges", "carry", "view")
+
+
+def sync_edge_case(name: str, dev):
+    """SoftSync inputs (soft_ext, valid, ints, q) on dev at an edge of the
+    sync_scan kernel (SYNC_EDGE_CASES); GivenSync takes the same with raw
+    and norm from sync_correlate:
+      S=0 .. S=33     soft_stress at 3 channels: no symbol, one, and a
+                      tile's 32 symbols less one, exact, one more
+      C=133           soft_stress at 133 channels x 2284 symbols
+      whole capture   soft_stress at 1 channel x 26,000 symbols (rx_batch
+                      runs a whole capture as one block)
+      tile edges      sync_tile_edges
+      carry           soft_stress at 12 channels with carries at the int32
+                      edges: total INT_MAX and 2^30 - 3, sss INT_MAX - 5,
+                      each in HUNTING, VERIFYING and LOCKED; LOCKED and
+                      collecting with sss 3000 > 2168 (no check until
+                      sss wraps); sync quality 0.3
+      view            soft_stress at 5 channels as the view
+                      soft_cat[:, 2121:] of rx/pipeline.py: rows 8 bytes
+                      off 16 at a stride of 2144 + S"""
+    import torch
+    from opv_tpu_torch.config import CONFIG
+    if name.startswith("S="):
+        return soft_stress(3, int(name[2:]), dev, seed=int(name[2:]))
+    if name == "C=133":
+        return soft_stress(133, 2284, dev)
+    if name == "whole capture":
+        return soft_stress(1, 26_000, dev)
+    if name == "tile edges":
+        return sync_tile_edges(dev)
+    if name == "carry":
+        x, valid, ints, q = soft_stress(12, 700, dev, seed=13)
+        ints[:, 0] = torch.arange(12) % 3
+        ints[0:3, 4] = 2**31 - 1
+        ints[3:6, 4] = (1 << 30) - 3
+        ints[6:9, 1] = 2**31 - 6
+        ints[9:12] = torch.tensor([2, 3000, 0, 1, 100, 0], dtype=torch.int32)
+        return x, valid, ints, torch.full_like(q, 0.3)
+    if name == "view":
+        eb = CONFIG.encoded_bits
+        x, valid, ints, q = soft_stress(5, 2284, dev, seed=14)
+        cat = torch.zeros((5, eb + 2284), dtype=torch.float64, device=dev)
+        cat[:, eb - 23:] = x
+        return cat[:, eb - 23:], valid, ints, q
+    raise ValueError(f"no sync edge case {name!r}")
 
 
 def track_bound(nsym: int, n_samples: int, channels: int, maxs: int):
@@ -2322,18 +2521,31 @@ def track_bound(nsym: int, n_samples: int, channels: int, maxs: int):
     return bound(nbytes, nsym * TRACK_OPS_PER_SYMBOL, PEAK_OPS_PER_S["f64"])
 
 
-def sync_bound(channels: int, steps: int, int_ops_per_s: float):
-    """(bound ms, what bounds it) of sync_scan: raw, norm and valid read
-    once (17 B a symbol), ready, q, events, misses and frames written
-    (21 B), against SYNC_OPS_PER_SYMBOL int32 operations a symbol."""
-    return bound(channels * steps * 38 + channels * 2 * (6 * 4 + 8),
-                 channels * steps * SYNC_OPS_PER_SYMBOL, int_ops_per_s)
+def sync_bound(channels: int, steps: int, int_ops_per_s: float,
+               soft: bool = False):
+    """(bound ms, what bounds it) of sync_scan.  GivenSync: raw, norm and
+    valid read once (17 B a symbol), ready, q, events, misses and frames
+    written (21 B), SYNC_OPS_PER_SYMBOL int32 operations a symbol.
+    SoftSync: soft_ext (23 + S a row) and valid read once, the same
+    outputs and raw and norm written (16 B), and SYNC_F64_OPS_PER_SYMBOL
+    float64 operations a symbol beside the int32 ones (separate pipes: the
+    larger time bounds)."""
+    state = channels * 2 * (6 * 4 + 8)
+    if not soft:
+        return bound(channels * steps * 38 + state,
+                     channels * steps * SYNC_OPS_PER_SYMBOL, int_ops_per_s)
+    nbytes = channels * ((steps + 23) * 8 + steps * (1 + 21 + 16)) + state
+    f64 = bound(nbytes, channels * steps * SYNC_F64_OPS_PER_SYMBOL,
+                PEAK_OPS_PER_S["f64"])
+    i32 = bound(nbytes, channels * steps * SYNC_OPS_PER_SYMBOL, int_ops_per_s)
+    return max(f64, i32)
 
 
 def tracking_kernels(dev, card, int_ops_per_s: float):
-    """(a) track_symbols and sync_scan against their twins at C = 1 and
-    C = TRACK_CHANNELS on one chunk of the golden mix, and their times;
-    track_symbols held on TRACK_EDGE_CASES too."""
+    """(a) track_symbols and both sync_scan instantiations against their
+    twins at C = 1 and C = TRACK_CHANNELS on one chunk of the golden mix,
+    and their times; track_symbols on TRACK_EDGE_CASES, sync_scan on its
+    stress inputs (held and timed) and SYNC_EDGE_CASES (held)."""
     import torch
     from opv_tpu_torch.config import CONFIG
     from opv_tpu_torch.ops import build
@@ -2344,12 +2556,45 @@ def tracking_kernels(dev, card, int_ops_per_s: float):
     eb = CONFIG.encoded_bits
     maxs = max_symbols(SPF)
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    entry = False
+    entry = None
     for line in build.BUILD_INFO["ptxas"].splitlines():
         if "Compiling entry function" in line:
-            entry = "track_symbols" in line
+            entry = next((k for k in ("track_symbols", "GivenSync", "SoftSync")
+                          if k in line), None)
         elif entry and ("registers" in line or "spill" in line):
-            log(f"[tracking] (a) track_symbols ptxas: {line.strip()}")
+            log(f"[tracking] (a) {entry} ptxas: {line.strip()}")
+
+    def time_sync(what, c, steps, soft_ext, valid, ints, q, twin_ms):
+        """Both instantiations timed on the same symbols; GivenSync on the
+        kernel's own raw/norm, beside the two-step route it replaces
+        (torch's sync_correlate on the card, then GivenSync)."""
+        got, soft_twin_ms = hold_sync_soft(soft_ext, valid, ints, q, what)
+        raw, norm = got[7], got[8]
+        given_ms = device_ms(lambda: sc.sync_scan_cuda(raw, norm, valid, ints,
+                                                       q), SYNC_REPS)
+        soft_ms = device_ms(lambda: sc.sync_correlate_scan_cuda(
+            soft_ext, valid, ints, q), SYNC_REPS)
+        corr_ms = device_ms(lambda: sync_correlate(soft_ext), SYNC_REPS)
+        rows = {}
+        for name, ms, plain, soft in (("GivenSync", given_ms, twin_ms, False),
+                                      ("SoftSync", soft_ms, soft_twin_ms,
+                                       True)):
+            b_ms, b_by = sync_bound(c, steps, int_ops_per_s, soft)
+            rows[f"sync_scan[{name}]"] = dict(
+                ms=soft_ms if soft else given_ms, plain_ms=plain,
+                max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                roofline=b_ms / ms, library_ms=None)
+        rows["sync_scan[SoftSync]"]["two_step_ms"] = corr_ms + given_ms
+        log(f"[tracking] (a) {what}: sync_scan bit-identical, both "
+            f"instantiations ({int(got[2].sum())} frames ready, events by "
+            f"code {np.bincount(got[4].cpu().numpy().ravel(), minlength=6).tolist()}): "
+            f"GivenSync {given_ms:.4f} ms (twin {twin_ms:.0f} ms, bound "
+            f"{rows['sync_scan[GivenSync]']['bound_ms']:.5f}), SoftSync "
+            f"{soft_ms:.4f} ms (twins {soft_twin_ms:.0f} ms, bound "
+            f"{rows['sync_scan[SoftSync]']['bound_ms']:.5f}), the two-step "
+            f"route torch sync_correlate {corr_ms:.4f} + GivenSync ({card})")
+        return rows
+
     rows = {}
     for c in (1, TRACK_CHANNELS):
         x, nv, state = track_inputs(c, dev)
@@ -2361,24 +2606,10 @@ def tracking_kernels(dev, card, int_ops_per_s: float):
         # ms as cycles a symbol of one channel's chain, at the max SM clock
         cyc = 1e3 * sm_mhz * c / nsym
         bound_ms, bound_by = track_bound(nsym, int(nv.sum()), c, maxs)
-        # sync_scan on the card's soft, from a zero history and HUNTING
-        hist = torch.zeros((c, eb), dtype=torch.float64, device=dev)
-        raw, norm = sync_correlate(torch.cat([hist, soft], 1)[:, eb - 23:])
-        ints = torch.zeros((c, 6), dtype=torch.int32, device=dev)
-        q0 = torch.zeros(c, dtype=torch.float64, device=dev)
-        (_, _, ready, _, events, _, _), sync_twin_ms = hold_sync(
-            raw, norm, valid, ints, q0, f"C={c}")
-        sync_ms = cuda_ms(lambda: sc.sync_scan_cuda(raw, norm, valid, ints,
-                                                    q0), TRACK_REPS)
-        s_bound, s_by = sync_bound(c, maxs, int_ops_per_s)
-        rows[c] = dict(
-            track_symbols=dict(ms=ms, plain_ms=twin_ms, max_abs_err=err,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               roofline=bound_ms / ms, library_ms=None,
-                               symbols=nsym),
-            sync_scan=dict(ms=sync_ms, plain_ms=sync_twin_ms, max_abs_err=0.0,
-                           bound_ms=s_bound, bound_by=s_by,
-                           roofline=s_bound / sync_ms, library_ms=None))
+        rows[c] = dict(track_symbols=dict(
+            ms=ms, plain_ms=twin_ms, max_abs_err=err, bound_ms=bound_ms,
+            bound_by=bound_by, roofline=bound_ms / ms, library_ms=None,
+            symbols=nsym))
         air_ms = SPF / REAL_TIME_MSPS / 1e3
         log(f"[tracking] (a) C={c}: track_symbols n_sym, samples_used and "
             f"sym_valid equal to the twin's, soft within {err:.3e} "
@@ -2387,11 +2618,17 @@ def tracking_kernels(dev, card, int_ops_per_s: float):
             f"as ms x the max SM clock, {sm_mhz:.0f} MHz; {air_ms:.0f} ms "
             f"of air, {air_ms / ms:.1f}x real time), "
             f"twin {twin_ms:.0f} ms (host), "
-            f"bound {bound_ms:.4f} ms ({bound_by}); sync_scan bit-identical "
-            f"({int(ready.sum())} frames ready, "
-            f"{int((events > 0).sum())} events): kernel {sync_ms:.4f} ms, "
-            f"twin {sync_twin_ms:.0f} ms, bound {s_bound:.5f} ms ({s_by}) "
-            f"({card})")
+            f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
+        # sync_scan on the card's soft, from a zero history and HUNTING,
+        # as rx_block_from_soft hands it over (the view of soft_cat)
+        ext = torch.cat([torch.zeros((c, eb), dtype=torch.float64,
+                                     device=dev), soft], 1)[:, eb - 23:]
+        ints = torch.zeros((c, 6), dtype=torch.int32, device=dev)
+        q0 = torch.zeros(c, dtype=torch.float64, device=dev)
+        raw, norm = sync_correlate(ext)
+        _, given_twin_ms = hold_sync(raw, norm, valid, ints, q0, f"C={c}")
+        rows[c].update(time_sync(f"C={c}", c, maxs, ext, valid, ints, q0,
+                                 given_twin_ms))
     for name in TRACK_EDGE_CASES:
         x, nv, state = track_edge_case(name, dev)
         (_, valid, _, used), err, twin_ms = hold_track(x, nv, state, name)
@@ -2405,10 +2642,62 @@ def tracking_kernels(dev, card, int_ops_per_s: float):
     if min(counts) == 0:
         raise AssertionError(f"[tracking] the sync_scan stress reached only "
                              f"events {counts}")
-    log(f"[tracking] (a) sync_scan bit-identical on the stress input "
-        f"({TRACK_CHANNELS} x {maxs}, events by code {counts}, "
-        f"{int(ready.sum())} ready)")
+    given_ms = device_ms(lambda: sc.sync_scan_cuda(*stress), SYNC_REPS)
+    log(f"[tracking] (a) sync_scan GivenSync bit-identical on the stress "
+        f"input ({TRACK_CHANNELS} x {maxs}, events by code {counts}, "
+        f"{int(ready.sum())} ready): {given_ms:.4f} ms ({card})")
+    x, valid, ints, q = soft_stress(TRACK_CHANNELS, maxs, dev)
+    _, twin_ms = hold_sync(*sync_correlate(x), valid, ints, q, "soft stress")
+    rows["stress"] = time_sync("soft stress", TRACK_CHANNELS, maxs, x, valid,
+                               ints, q, twin_ms)
+    rows["stress"]["sync_scan[GivenSync]"]["stress_ms"] = given_ms
+    t0 = time.perf_counter()
+    seen = Counter()
+    for name in SYNC_EDGE_CASES:
+        x, valid, ints, q = sync_edge_case(name, dev)
+        got, _ = hold_sync_soft(x, valid, ints, q, name)
+        hold_sync(got[7], got[8], valid, ints, q, name)
+        seen.update(got[4].cpu().numpy().ravel().tolist())
+    log(f"[tracking] (a) sync_scan both instantiations bit-identical on "
+        f"{', '.join(SYNC_EDGE_CASES)} (events by code "
+        f"{[seen[k] for k in range(6)]}; {time.perf_counter() - t0:.1f} s)")
     return rows
+
+
+def sync_routes(dev, card):
+    """The sync stage's two public routes on T1's soft for one chunk of
+    the golden mix at TRACK_CHANNELS, from a zero history (rx/sync.py:
+    sync_correlate then sync_scan, the GivenSync path; sync_correlate_scan,
+    the SoftSync one): every output equal.  Returns the launches of the
+    run (counts reset just before it)."""
+    import torch
+    from opv_tpu_torch.config import CONFIG
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.rx.demod import max_symbols
+    from opv_tpu_torch.rx.sync import (sync_correlate, sync_correlate_scan,
+                                       sync_scan, sync_tracker_init)
+    eb = CONFIG.encoded_bits
+    x, nv, state = track_inputs(TRACK_CHANNELS, dev)
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    soft, valid, _, _ = registry.track_symbols(x, nv, state, CONFIG.afc_alpha,
+                                               max_symbols(SPF))
+    ext = torch.cat([torch.zeros((TRACK_CHANNELS, eb), dtype=torch.float64,
+                                 device=dev), soft], 1)[:, eb - 23:]
+    st = sync_tracker_init(TRACK_CHANNELS, device=dev)
+    raw, norm = sync_correlate(ext)
+    two = sync_scan(st, raw, norm, valid)
+    one = sync_correlate_scan(st, ext, valid)
+    torch.cuda.synchronize()
+    launches = registry.launch_counts()
+    same_sync((*one[0], *one[1:]), (*two[0], raw, norm, *two[1:]),
+              "(a) sync_correlate_scan against sync_correlate + sync_scan",
+              names=(*st._fields, *SYNC_OUTPUTS[7:], *SYNC_OUTPUTS[2:7]))
+    log(f"[tracking] (a) rx.sync.sync_correlate + sync_scan (GivenSync) and "
+        f"sync_correlate_scan (SoftSync) equal on the card on "
+        f"{TRACK_CHANNELS} x {valid.shape[1]} symbols "
+        f"({int(one[3].sum())} frames ready); launches {launches} ({card})")
+    return launches
 
 
 def cpu_streaming(job):
@@ -2512,6 +2801,7 @@ def tracking_64(dev, card):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from opv_tpu_torch.ops import registry
     from opv_tpu_torch.stream import (MultiChannelTrackingDemodulator,
                                       StreamingDemodulator)
     x = tracking_feed(dev)
@@ -2520,6 +2810,7 @@ def tracking_64(dev, card):
     torch.cuda.reset_peak_memory_stats()
     mc = MultiChannelTrackingDemodulator(TRACK_CHANNELS, device=dev)
     res, times = [], []
+    before = registry.launch_counts()
     prof_at = (3, 6)            # the profiled chunks, not in the times
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     whole = n // SPF
@@ -2532,6 +2823,9 @@ def tracking_64(dev, card):
         times.append((time.perf_counter() - t0) * 1e3)
         if k == prof_at[1] - 1:
             prof.__exit__(None, None, None)
+    after = registry.launch_counts()
+    per_chunk = {k: (after[k] - before[k]) / whole for k in after
+                 if after[k] > before[k]}
     res += mc.feed(x[:, whole * SPF:]) + mc.flush()
     peak = torch.cuda.max_memory_allocated()
     steady = [t for k, t in enumerate(times)
@@ -2539,13 +2833,14 @@ def tracking_64(dev, card):
     ms_chunk = statistics.median(steady)
     msps = TRACK_CHANNELS * SPF / ms_chunk / 1e3
     chunks = prof_at[1] - prof_at[0]
-    dev_ms = Counter()
+    dev_ms, dev_n = Counter(), Counter()
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         key = next((k for k in ("track_symbols", "sync_scan", "viterbi")
                     if k in e.key), "other")
         dev_ms[key] += e.self_device_time_total / 1e3 / chunks
+        dev_n[key] += e.count / chunks
     # the JAX contract: each channel equals its own single-channel run
     t0 = time.perf_counter()
     dq = 0.0
@@ -2577,11 +2872,16 @@ def tracking_64(dev, card):
         f"{msps / (TRACK_CHANNELS * REAL_TIME_MSPS):.2f}x real time for "
         f"{TRACK_CHANNELS} channels; device ms per chunk (torch.profiler, "
         f"{chunks} chunks): {', '.join(f'{k} {v:.3f}' for k, v in dev_ms.most_common())}; "
+        f"device kernels per chunk {sum(dev_n.values()):.1f} "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in dev_n.most_common())}); "
+        f"the port's kernels' launches per chunk {per_chunk}; "
         f"peak memory {peak / 2**30:.2f} GiB ({card})")
     return dict(frames=len(res), ms_per_chunk=ms_chunk, chunk_ms=times,
                 msps=msps,
                 x_real_time=msps / (TRACK_CHANNELS * REAL_TIME_MSPS),
-                device_ms_per_chunk=dict(dev_ms), peak_bytes=peak,
+                device_ms_per_chunk=dict(dev_ms),
+                device_kernels_per_chunk=dict(dev_n),
+                launches_per_chunk=per_chunk, peak_bytes=peak,
                 max_q_diff=dq)
 
 
@@ -2642,6 +2942,7 @@ def phase_tracking(dev, card, int_ops_per_s: float, fast_echo: dict):
     from opv_tpu_torch.ops import registry
     t_phase = time.perf_counter()
     kernels = tracking_kernels(dev, card, int_ops_per_s)
+    routes = sync_routes(dev, card)
     registry.set_viterbi_radix(4)
     registry.reset_launch_counts()
     goldens = tracking_goldens(dev, card)
@@ -2649,14 +2950,17 @@ def phase_tracking(dev, card, int_ops_per_s: float, fast_echo: dict):
     cli = tracking_cli(card, fast_echo)
     torch.cuda.synchronize()
     launches = registry.launch_counts()
-    if min(launches[k] for k in ("track_symbols", "sync_scan",
-                                 "viterbi_r4")) <= 0:
+    if min(launches[k] for k in ("track_symbols", "sync_scan[SoftSync]",
+                                 "viterbi_r4")) <= 0 \
+            or launches["sync_scan[GivenSync]"] \
+            or routes["sync_scan[GivenSync]"] <= 0:
         raise AssertionError(f"[tracking] a kernel of the tracking path never "
-                             f"launched: {launches}")
+                             f"launched, or GivenSync launched on it: "
+                             f"{launches}; the GivenSync route: {routes}")
     log(f"[tracking] launches over (b)-(d) {launches}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return dict(launches=launches, kernels=kernels, goldens=goldens,
-                tracking_64=mc, cli=cli)
+    return dict(launches=launches, routes_launches=routes, kernels=kernels,
+                goldens=goldens, tracking_64=mc, cli=cli)
 
 
 def phase_profile(state, card, out_dir="build/chip_smoke"):
@@ -2750,16 +3054,21 @@ def main() -> int:
         launches_wideband=wideband["launches"]["phase_track"],
         launches_tracking=tracking["launches"]["phase_track"],
         **cli["phase_track"]))
-    # the tracking receiver's two kernels: ms and bound at C = 64 (one
-    # chunk of the golden mix); launches: the tracking phase's (b)-(d)
+    # the tracking receiver's kernels: ms and bound at C = 64 (one chunk of
+    # the golden mix); launches: the tracking phase's (b)-(d), GivenSync's
+    # from its own route (sync_routes)
     for name, replaces in (("track_symbols", "opv_tpu/rx/demod.py:195"),
-                           ("sync_scan", "opv_tpu/rx/sync.py:166")):
+                           ("sync_scan[GivenSync]", "opv_tpu/rx/sync.py:166"),
+                           ("sync_scan[SoftSync]", "opv_tpu/rx/sync.py:166")):
         row = dict(tracking["kernels"][TRACK_CHANNELS][name])
         row.pop("symbols", None)
+        given = name == "sync_scan[GivenSync]"
         kernels.append(dict(
             name=name, route="cuda",
-            source=f"opv_tpu_torch/csrc/{name}.cu", replaces=replaces,
-            launches=tracking["launches"][name],
+            source=f"opv_tpu_torch/csrc/{name.split('[')[0]}.cu",
+            replaces=replaces,
+            launches=(tracking["routes_launches"] if given
+                      else tracking["launches"])[name],
             **{f"launches_{ph}": res["launches"][name] for ph, res in (
                 ("stream", stream), ("modes", modes), ("cli", cli),
                 ("wideband", wideband), ("tracking", tracking))},

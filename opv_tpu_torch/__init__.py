@@ -9,17 +9,23 @@ Layout mirrors opv_tpu/ so each counterpart is easy to find:
              (COBS, priority-scheduled traffic -> 40 ms frames; host Python)
   rx/        sync, CFO, dense correlator, Viterbi twins, frame finisher,
              the locked-grid batch receiver (rx_locked / rx_locked_steady)
-             with its re-acquire / retime functions, and the polyphase
-             analysis channelizer (one wideband stream -> K channels)
+             with its re-acquire / retime functions, the polyphase
+             analysis channelizer (one wideband stream -> K channels),
+             and the reference-parity tracking path (rx/demod.py's
+             float64 AFC/TED loop, rx/sync.py's correlator and flywheel,
+             rx/pipeline.py's rx_batch)
   stream/    the streaming receivers: LockedStreamDemodulator (synchronous
              or pipelined, eager serving, int8 rows with AGC, the strided
-             hunt) and WidebandReceiver
-             (channelizer + engine), with their checkpoint files
+             hunt), WidebandReceiver (channelizer + engine) and the
+             tracking receivers StreamingDemodulator and
+             MultiChannelTrackingDemodulator, with their checkpoint files
              (save_state / load_state)
   ops/       hand-written CUDA kernels (csrc/*.cu: the Viterbi, the fused
-             soft stage, the exact TX's phase recurrence) with their plain
-             twins, the nvcc build, and the registry that dispatches
-             between them
+             soft stage, the exact TX's phase recurrence, the tracking
+             loop T1 track_symbols, the sync flywheel T2 sync_scan with
+             the sync correlation as an optional input stage) with their
+             plain twins, the nvcc build, and the registry that
+             dispatches between them
   io/        the int16 IQ wire format and the UDP frame bridge
   utils/     the reference's stderr formats and JSON-lines metrics
   cli/       opv_mod, opv_demod (-s --fast, --channels, --wideband) and

@@ -1,26 +1,46 @@
 // The sync acquisition/tracking state machine (HUNTING / VERIFYING /
 // LOCKED with the miss flywheel) of the reference-parity receiver, for
-// sm_90a.
+// sm_90a, with the 24-tap sync correlation as an optional input stage.
 //
 // Replaces: the lax.scan of opv_tpu/rx/sync.py::sync_scan (`:166`, its
-// step `:111-160`), not a Pallas kernel.  Same contract as the plain twin
-// in ops/sync_scan.py, bit for bit: per channel and symbol, from the raw
-// and energy-normalized sync correlation and the valid mask, the next
-// state, symbols since sync, misses, sync quality, collecting flag,
-// saturating symbol total and frame count, and the per-symbol outputs
-// (frame ready, quality at emit, the EV_* transition code, misses and
-// frames after the step).  An invalid step changes nothing and emits
-// EV_NONE.  The work is integer adds, compares and selects, and float64
-// compares (no float arithmetic), so any order of evaluation gives the
-// same bits; the branch order below is the reference's.
+// step `:111-160`), not a Pallas kernel, and (SoftSync) the 24 shifted
+// adds of sync_correlate (`:71-89`) with normalized_sync's gate.  Same
+// contract as the plain twins in ops/sync_scan.py, bit for bit: per
+// channel and symbol, from the raw and energy-normalized sync correlation
+// and the valid mask, the next state, symbols since sync, misses, sync
+// quality, collecting flag, saturating symbol total and frame count, and
+// the per-symbol outputs (frame ready, quality at emit, the EV_*
+// transition code, misses and frames after the step).  An invalid step
+// changes nothing and emits EV_NONE.  The machine is integer adds,
+// compares and selects and float64 compares; the correlation is the
+// twin's adds in the twin's order (__dadd_rn/__dsub_rn, no contraction)
+// and one __ddiv_rn, so every output equals the twin's bits.
 //
-// What bounds it: the chain.  Each symbol's state depends on the last, so
-// one thread walks one channel's symbols; per symbol that is ~30 integer
-// operations and 24 bytes in (raw, norm, valid) and 21 out, ~0.1 us of
-// dependent instructions.  A 64-channel chunk (2,284 symbols) moves ~6.6 MB,
-// ~0.002 ms at the HBM rate; the walk takes tens of us.  The loads do not
-// depend on the state, so the loop is unrolled to start them ahead of the
-// chain.
+// What bounds it: the chain, and how much of it a symbol costs.  Each
+// symbol's state depends on the last, but almost no symbol changes more
+// than the symbol counters: in HUNTING only a hunt hit does, in VERIFYING
+// and LOCKED only the symbol at a known count of valid steps.  So one warp
+// walks one channel, a tile of 32 symbols at a time, a symbol per lane:
+// the per-symbol tests that do not depend on the state run on every lane
+// at once, a ballot and the lanes' rank among the tile's valid symbols
+// give the counters at every lane in closed form, a second ballot finds
+// the next lane where the step does more, and only there the warp runs
+// the reference's step (a tile holds zero or one such lane as a rule).
+// Each lane keeps its own symbol's outputs and the warp stores them
+// coalesced.  The loads do not depend on the state: each lane loads a
+// group of kGroup tiles one group ahead of the walk into registers.  A
+// 64-channel chunk (2,284 symbols) moves ~5.6 MB (GivenSync) or ~6.7 MB
+// (SoftSync), ~0.002 ms at the HBM rate; the walk is 72 tiles of ~500
+// clock64 cycles (GivenSync; ~860 with SoftSync's correlation), 0.018 /
+// 0.030 ms on an H100 SXM at C = 1 and at C = 64 alike: the per-tile
+// latency bounds it, not bytes.
+//
+// SoftSync computes raw and norm itself from the soft stream soft_ext
+// (C, 23 + S), each row at a stride of its own (the view
+// soft_cat[:, eb - 23:] of rx/pipeline.py, 8 bytes off 16, read with
+// plain coalesced 8-byte loads): the group and its 23-symbol halo go
+// through a per-warp buffer in shared memory, each lane sums its own
+// symbol's 24 taps in the twin's order, and raw and norm are stored too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +51,16 @@ constexpr int kHunt = 0, kVerify = 1, kLocked = 2;
 constexpr int kEvNone = 0, kEvHuntVerify = 1, kEvVerifyLock = 2,
               kEvSyncOk = 3, kEvSyncMiss = 4, kEvLoseLock = 5;
 constexpr int kIntWidth = 6;  // state, sss, misses, collecting, total, frames
+constexpr int kTotalCap = 1 << 30;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 32;   // symbols a tile, one a lane
+constexpr int kGroup = 4;   // tiles a lane loads at once, a group ahead
+constexpr int kGroupSyms = kGroup * kTile;
+constexpr int kTaps = 24;   // the sync word: SoftSync's taps
+// The protocol's sync word, MSB first: a set bit is a -1 tap (the F1
+// tone).  A constant, so each tap's add or subtract is fixed at compile
+// time; the launcher refuses another word.
+constexpr unsigned kSyncWord = 0x02B8DB;
 
 struct Params {
   double hunt_norm, locked_norm, hunt_raw;
@@ -42,78 +72,287 @@ __device__ __forceinline__ int add_wrap(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
 
-__global__ void sync_scan_kernel(const double* __restrict__ raw,
-                                 const double* __restrict__ norm,
-                                 const uint8_t* __restrict__ valid,
-                                 int channels, int steps, Params p,
-                                 const int* __restrict__ ist_in,
-                                 const double* __restrict__ q_in,
-                                 int* __restrict__ ist_out,
-                                 double* __restrict__ q_out,
-                                 uint8_t* __restrict__ ready,
-                                 double* __restrict__ q,
-                                 int* __restrict__ events,
-                                 int* __restrict__ ev_misses,
-                                 int* __restrict__ ev_frames) {
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
+// The carry of one channel, uniform across its warp.
+struct Carry {
+  int state, sss, misses, total, frames;
+  bool collecting;
+  double sq;
+};
+
+// One lane's outputs for its symbol of the tile.
+struct Out {
+  bool rdy;
+  int ev, misses, frames;
+  double q;
+};
+
+// The reference's step on a valid symbol whose counters after the step
+// are sss_n and total_n; updates c, returns the outputs.
+__device__ __forceinline__ Out step(Carry& c, int sss_n, int total_n,
+                                    double r, double nrm, const Params& p) {
+  const bool is_hunt = c.state == kHunt, is_ver = c.state == kVerify,
+             is_lock = c.state == kLocked;
+  const bool hunt_hit = is_hunt && total_n >= p.sync_bits &&
+                        r >= p.hunt_raw && nrm >= p.hunt_norm;
+  const bool ver_done = is_ver && sss_n >= p.encoded_bits;
+  const bool lock_chk = is_lock && sss_n == p.frame_symbols;
+  const bool lock_ok = lock_chk && nrm >= p.locked_norm;
+  const bool lock_miss = lock_chk && !lock_ok;
+  const int m = lock_ok ? 0 : (lock_miss ? add_wrap(c.misses, 1) : c.misses);
+  const bool lose_lock = lock_miss && m >= p.miss_limit;
+  const bool flywheel = lock_miss && !lose_lock;
+  const bool lock_emit = is_lock && c.collecting && sss_n == p.encoded_bits;
+  const bool sync_event = hunt_hit || lock_ok || flywheel;
+  c.state = hunt_hit ? kVerify : ver_done ? kLocked : lose_lock ? kHunt
+                                                                : c.state;
+  c.collecting = sync_event ? true
+               : (ver_done || lose_lock || lock_emit) ? false : c.collecting;
+  c.sss = (hunt_hit || lock_chk) ? 0 : sss_n;
+  c.sq = sync_event ? nrm : c.sq;
+  c.misses = ver_done ? 0 : m;
+  const bool rdy = ver_done || lock_emit;
+  c.frames = add_wrap(c.frames, rdy ? 1 : 0);
+  c.total = total_n;
+  Out o;
+  o.rdy = rdy;
+  o.ev = hunt_hit ? kEvHuntVerify : ver_done ? kEvVerifyLock
+       : lock_ok ? kEvSyncOk : lose_lock ? kEvLoseLock
+       : flywheel ? kEvSyncMiss : kEvNone;
+  o.q = c.sq;
+  o.misses = c.misses;
+  o.frames = c.frames;
+  return o;
+}
+
+// total after k >= 1 valid steps from t, each min(wrap(t + 1), 2^30): the
+// first step may wrap (t = INT_MAX) or saturate; from there on t <= 2^30
+// and the steps add without wrapping until they saturate.
+__device__ __forceinline__ int total_after(int t1, int k) {
+  return min(add_wrap(t1, k - 1), kTotalCap);
+}
+
+// Walk one tile: lane `lane` holds symbol (v, r, nrm) and gets its outputs
+// in o.  Between two events only sss and total move, so the walk jumps
+// from event to event.
+__device__ __forceinline__ void walk_tile(Carry& c, bool v, double r,
+                                          double nrm, const Params& p,
+                                          int lane, Out& o) {
+  const unsigned vmask = __ballot_sync(kFull, v);
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0..lane
+  const bool hunt_ok = r >= p.hunt_raw && nrm >= p.hunt_norm;
+  int from = 0;
+  for (;;) {
+    const unsigned live = vmask & (kFull << from);  // valid lanes >= from
+    const int t1 = min(add_wrap(c.total, 1), kTotalCap);
+    // the counters after this lane's step, had no event come before it
+    const int k = __popc(live & upto);
+    const int sss_k = add_wrap(c.sss, k);
+    bool hit;
+    if (c.state == kHunt)
+      hit = total_after(t1, k) >= p.sync_bits && hunt_ok;
+    else if (c.state == kVerify)
+      hit = sss_k >= p.encoded_bits;
+    else if (c.state == kLocked)
+      hit = sss_k == p.frame_symbols ||
+            (c.collecting && sss_k == p.encoded_bits);
+    else
+      hit = false;
+    const unsigned events = __ballot_sync(kFull, hit && v && lane >= from);
+    const int e = events ? __ffs(events) - 1 : kTile;
+    if (lane >= from && lane < e) {
+      o.rdy = false;
+      o.ev = kEvNone;
+      o.q = c.sq;
+      o.misses = c.misses;
+      o.frames = c.frames;
+    }
+    if (!events) {
+      const int n = __popc(live);
+      c.sss = add_wrap(c.sss, n);
+      if (n) c.total = total_after(t1, n);
+      return;
+    }
+    const int ke = __popc(live & ((2u << e) - 1u));
+    const double re = __shfl_sync(kFull, r, e);
+    const double ne = __shfl_sync(kFull, nrm, e);
+    const Out oe = step(c, add_wrap(c.sss, ke), total_after(t1, ke), re, ne,
+                        p);
+    if (lane == e) o = oe;
+    from = e + 1;
+    if (from == kTile) return;
+  }
+}
+
+// The kernel's input: raw, norm and valid given, (C, S) contiguous.
+struct GivenSync {
+  static constexpr int kSmem = 1;  // doubles of shared memory a warp
+  const double* raw;
+  const double* norm;
+  const uint8_t* valid;
+  struct Group {
+    double r[kGroup], n[kGroup];
+    bool v[kGroup];
+  };
+  __device__ __forceinline__ void load(Group& g, int, long long row, int t0,
+                                       int steps, int lane) const {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int t = t0 + j * kTile + lane;
+      const bool in = t < steps;
+      g.r[j] = in ? raw[row + t] : 0.0;
+      g.n[j] = in ? norm[row + t] : 0.0;
+      g.v[j] = in && valid[row + t] != 0;
+    }
+  }
+  // raw/norm of each tile of the group (nothing to compute)
+  __device__ __forceinline__ void prepare(const Group& g, double* r,
+                                          double* n, double*, long long,
+                                          int, int, int) const {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      r[j] = g.r[j];
+      n[j] = g.n[j];
+    }
+  }
+};
+
+// The kernel's input: the soft stream soft_ext (C, 23 + S) at row stride
+// ld and valid (C, S); raw and norm computed here and stored to raw_out,
+// norm_out (C, S).
+struct SoftSync {
+  static constexpr int kSmem = kGroupSyms + kTile;  // a group and its halo
+  const double* soft;
+  long long ld;
+  const uint8_t* valid;
+  double* raw_out;
+  double* norm_out;
+  double min_energy;
+  struct Group {
+    double x[kGroup + 1];  // soft_ext[t0 + j * 32 + lane], j = 0..kGroup
+    bool v[kGroup];
+  };
+  __device__ __forceinline__ void load(Group& g, int ch, long long row,
+                                       int t0, int steps, int lane) const {
+    const double* srow = soft + ch * ld;
+#pragma unroll
+    for (int j = 0; j <= kGroup; ++j) {
+      const int i = t0 + j * kTile + lane;
+      g.x[j] = i < steps + kTaps - 1 ? srow[i] : 0.0;
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int t = t0 + j * kTile + lane;
+      g.v[j] = t < steps && valid[row + t] != 0;
+    }
+  }
+  // Each lane's symbol of each tile: raw and energy as the twin sums them
+  // (tap 0 first, from +0.0), then normalized_sync's gate and division;
+  // raw and norm stored for the symbols of the row.
+  __device__ __forceinline__ void prepare(const Group& g, double* r,
+                                          double* n, double* buf,
+                                          long long row, int t0, int steps,
+                                          int lane) const {
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j <= kGroup; ++j) buf[j * kTile + lane] = g.x[j];
+    __syncwarp();
+    double e[kGroup];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) r[j] = e[j] = 0.0;
+#pragma unroll
+    for (int i = 0; i < kTaps; ++i) {
+      const bool neg = (kSyncWord >> (kTaps - 1 - i)) & 1u;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const double w = buf[j * kTile + lane + i];
+        r[j] = neg ? __dsub_rn(r[j], w) : __dadd_rn(r[j], w);
+        e[j] = __dadd_rn(e[j], fabs(w));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      n[j] = e[j] < min_energy ? 0.0
+           : __ddiv_rn(r[j], e[j] > 0.0 ? e[j] : 1.0);
+      const int t = t0 + j * kTile + lane;
+      if (t < steps) {
+        raw_out[row + t] = r[j];
+        norm_out[row + t] = n[j];
+      }
+    }
+  }
+};
+
+template <class In>
+__global__ void __launch_bounds__(kTile)
+sync_scan_kernel(In in, int channels, int steps, Params p,
+                 const int* __restrict__ ist_in,
+                 const double* __restrict__ q_in, int* __restrict__ ist_out,
+                 double* __restrict__ q_out, uint8_t* __restrict__ ready,
+                 double* __restrict__ q, int* __restrict__ events,
+                 int* __restrict__ ev_misses, int* __restrict__ ev_frames) {
+  __shared__ double buf[In::kSmem];
+  const int ch = blockIdx.x;
+  const int lane = threadIdx.x;
   if (ch >= channels) return;
   const int* si = ist_in + ch * kIntWidth;
-  int state = si[0], sss = si[1], misses = si[2], total = si[4], frames = si[5];
-  bool collecting = si[3] != 0;
-  double sq = q_in[ch];
+  Carry c;
+  c.state = si[0];
+  c.sss = si[1];
+  c.misses = si[2];
+  c.collecting = si[3] != 0;
+  c.total = si[4];
+  c.frames = si[5];
+  c.sq = q_in[ch];
   const long long row = static_cast<long long>(ch) * steps;
-#pragma unroll 8
-  for (int t = 0; t < steps; ++t) {
-    const long long at = row + t;
-    const double r = raw[at], nrm = norm[at];
-    const bool v = valid[at] != 0;
-    if (v) {
-      int total_n = add_wrap(total, 1);
-      total_n = total_n < (1 << 30) ? total_n : (1 << 30);
-      const int sss_n = add_wrap(sss, 1);
-      const bool is_hunt = state == kHunt, is_ver = state == kVerify,
-                 is_lock = state == kLocked;
-      const bool hunt_hit = is_hunt && total_n >= p.sync_bits &&
-                            r >= p.hunt_raw && nrm >= p.hunt_norm;
-      const bool ver_done = is_ver && sss_n >= p.encoded_bits;
-      const bool lock_chk = is_lock && sss_n == p.frame_symbols;
-      const bool lock_ok = lock_chk && nrm >= p.locked_norm;
-      const bool lock_miss = lock_chk && !lock_ok;
-      int m = lock_ok ? 0 : (lock_miss ? add_wrap(misses, 1) : misses);
-      const bool lose_lock = lock_miss && m >= p.miss_limit;
-      const bool flywheel = lock_miss && !lose_lock;
-      const bool lock_emit = is_lock && collecting && sss_n == p.encoded_bits;
-      const bool sync_event = hunt_hit || lock_ok || flywheel;
-      const int state_n = hunt_hit ? kVerify
-                        : ver_done ? kLocked
-                        : lose_lock ? kHunt : state;
-      collecting = sync_event ? true
-                 : (ver_done || lose_lock || lock_emit) ? false : collecting;
-      sss = (hunt_hit || lock_chk) ? 0 : sss_n;
-      sq = sync_event ? nrm : sq;
-      misses = ver_done ? 0 : m;
-      const bool rdy = ver_done || lock_emit;
-      frames = add_wrap(frames, rdy ? 1 : 0);
-      total = total_n;
-      state = state_n;
-      ready[at] = rdy;
-      events[at] = hunt_hit ? kEvHuntVerify
-                 : ver_done ? kEvVerifyLock
-                 : lock_ok ? kEvSyncOk
-                 : lose_lock ? kEvLoseLock
-                 : flywheel ? kEvSyncMiss : kEvNone;
-    } else {
-      ready[at] = 0;
-      events[at] = kEvNone;
+  typename In::Group nxt;
+  in.load(nxt, ch, row, 0, steps, lane);
+  for (int t0 = 0; t0 < steps; t0 += kGroupSyms) {
+    const typename In::Group cur = nxt;
+    if (t0 + kGroupSyms < steps)
+      in.load(nxt, ch, row, t0 + kGroupSyms, steps, lane);
+    double r[kGroup], n[kGroup];
+    in.prepare(cur, r, n, buf, row, t0, steps, lane);
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int base = t0 + j * kTile;
+      if (base >= steps) break;
+      Out o;
+      walk_tile(c, cur.v[j], r[j], n[j], p, lane, o);
+      const long long at = row + base + lane;
+      if (base + lane < steps) {
+        ready[at] = o.rdy;
+        q[at] = o.q;
+        events[at] = o.ev;
+        ev_misses[at] = o.misses;
+        ev_frames[at] = o.frames;
+      }
     }
-    q[at] = sq;
-    ev_misses[at] = misses;
-    ev_frames[at] = frames;
   }
-  int* so = ist_out + ch * kIntWidth;
-  so[0] = state; so[1] = sss; so[2] = misses; so[3] = collecting ? 1 : 0;
-  so[4] = total; so[5] = frames;
-  q_out[ch] = sq;
+  if (lane == 0) {
+    int* so = ist_out + ch * kIntWidth;
+    so[0] = c.state;
+    so[1] = c.sss;
+    so[2] = c.misses;
+    so[3] = c.collecting ? 1 : 0;
+    so[4] = c.total;
+    so[5] = c.frames;
+    q_out[ch] = c.sq;
+  }
+}
+
+template <class In>
+int launch(const In& in, int channels, int steps, const Params& p,
+           const void* ist_in, const void* q_in, void* ist_out, void* q_out,
+           void* ready, void* q, void* events, void* ev_misses,
+           void* ev_frames, void* stream) {
+  sync_scan_kernel<In><<<channels, kTile, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      in, channels, steps, p, static_cast<const int*>(ist_in),
+      static_cast<const double*>(q_in), static_cast<int*>(ist_out),
+      static_cast<double*>(q_out), static_cast<uint8_t*>(ready),
+      static_cast<double*>(q), static_cast<int*>(events),
+      static_cast<int*>(ev_misses), static_cast<int*>(ev_frames));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -124,8 +363,8 @@ __global__ void sync_scan_kernel(const double* __restrict__ raw,
 // (channels, steps) bool; q: (channels, steps) float64; events, ev_misses,
 // ev_frames: (channels, steps) int32; params: 3 thresholds (hunt norm,
 // locked norm, hunt raw) and 4 ints (sync bits, encoded bits, frame
-// symbols, miss limit), host memory.  Launches on `stream`; returns
-// cudaGetLastError().
+// symbols, miss limit), host memory.  A warp per channel.  Launches on
+// `stream`; returns cudaGetLastError().
 extern "C" int opv_sync_scan(const void* raw, const void* norm,
                              const void* valid, int channels, int steps,
                              const double* thresholds, const int* counts,
@@ -134,17 +373,36 @@ extern "C" int opv_sync_scan(const void* raw, const void* norm,
                              void* events, void* ev_misses, void* ev_frames,
                              void* stream) {
   if (channels <= 0 || steps < 0) return (int)cudaErrorInvalidValue;
-  Params p{thresholds[0], thresholds[1], thresholds[2],
-           counts[0], counts[1], counts[2], counts[3]};
-  const int threads = 32;
-  sync_scan_kernel<<<(channels + threads - 1) / threads, threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(raw), static_cast<const double*>(norm),
-      static_cast<const uint8_t*>(valid), channels, steps, p,
-      static_cast<const int*>(ist_in), static_cast<const double*>(q_in),
-      static_cast<int*>(ist_out), static_cast<double*>(q_out),
-      static_cast<uint8_t*>(ready), static_cast<double*>(q),
-      static_cast<int*>(events), static_cast<int*>(ev_misses),
-      static_cast<int*>(ev_frames));
-  return (int)cudaGetLastError();
+  const Params p{thresholds[0], thresholds[1], thresholds[2],
+                 counts[0], counts[1], counts[2], counts[3]};
+  const GivenSync in{static_cast<const double*>(raw),
+                     static_cast<const double*>(norm),
+                     static_cast<const uint8_t*>(valid)};
+  return launch(in, channels, steps, p, ist_in, q_in, ist_out, q_out, ready,
+                q, events, ev_misses, ev_frames, stream);
+}
+
+// SoftSync: soft_ext (channels, 23 + steps) float64 rows at a stride of
+// ld elements (ld >= 23 + steps), valid (channels, steps) bool; the other
+// state and outputs as opv_sync_scan's, plus raw_out and norm_out
+// (channels, steps) float64.  thresholds: the 3 above and the min energy;
+// counts as above (sync bits must be 24); sync_word: the protocol's
+// (must be kSyncWord).
+extern "C" int opv_sync_correlate_scan(
+    const void* soft_ext, long long ld, const void* valid, int channels,
+    int steps, const double* thresholds, const int* counts, unsigned sync_word,
+    const void* ist_in, const void* q_in, void* ist_out, void* q_out,
+    void* ready, void* q, void* events, void* ev_misses, void* ev_frames,
+    void* raw_out, void* norm_out, void* stream) {
+  if (channels <= 0 || steps < 0 || counts[0] != kTaps ||
+      sync_word != kSyncWord || ld < steps + kTaps - 1)
+    return (int)cudaErrorInvalidValue;
+  const Params p{thresholds[0], thresholds[1], thresholds[2],
+                 counts[0], counts[1], counts[2], counts[3]};
+  const SoftSync in{static_cast<const double*>(soft_ext), ld,
+                    static_cast<const uint8_t*>(valid),
+                    static_cast<double*>(raw_out),
+                    static_cast<double*>(norm_out), thresholds[3]};
+  return launch(in, channels, steps, p, ist_in, q_in, ist_out, q_out, ready,
+                q, events, ev_misses, ev_frames, stream);
 }

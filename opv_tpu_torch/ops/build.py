@@ -53,6 +53,10 @@ SIGNATURES = {
     "opv_sync_scan": ([_P, _P, _P, _I, _I, ctypes.POINTER(ctypes.c_double),
                        ctypes.POINTER(_I), _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P], _I),
+    "opv_sync_correlate_scan": ([_P, ctypes.c_longlong, _P, _I, _I,
+                                 ctypes.POINTER(ctypes.c_double),
+                                 ctypes.POINTER(_I), ctypes.c_uint,
+                                 *[_P] * 12], _I),
     "opv_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -81,16 +81,25 @@ def sync_scan(raw, norm, valid, ints, sync_q):
     return _sync.sync_scan_reference(raw, norm, valid, ints, sync_q)
 
 
+def sync_correlate_scan(soft_ext, valid, ints, sync_q):
+    """The sync correlation and state machine in one (ops/sync_scan.py
+    contract) -> sync_scan's outputs, then raw and norm."""
+    if _route(soft_ext) == "cuda":
+        return _sync.sync_correlate_scan_cuda(soft_ext, valid, ints, sync_q)
+    return _sync.sync_correlate_scan_reference(soft_ext, valid, ints, sync_q)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset (the soft stage
-    once per row type)."""
+    once per row type, the sync machine once per input)."""
     return {"viterbi_r4": _vit.viterbi_r4_cuda.launches,
             "viterbi_r2": _vit.viterbi_r2_cuda.launches,
             **{f"symbol_soft[{rows}]": n
                for rows, n in _soft.symbol_soft_cuda.launches.items()},
             "phase_track": _phase.phase_track_cuda.launches,
             "track_symbols": _track.track_symbols_cuda.launches,
-            "sync_scan": _sync.sync_scan_cuda.launches}
+            **{f"sync_scan[{src}]": n
+               for src, n in _sync.sync_scan_cuda.launches.items()}}
 
 
 def reset_launch_counts() -> None:
@@ -98,6 +107,7 @@ def reset_launch_counts() -> None:
     _vit.viterbi_r2_cuda.launches = 0
     _phase.phase_track_cuda.launches = 0
     _track.track_symbols_cuda.launches = 0
-    _sync.sync_scan_cuda.launches = 0
     for rows in _soft.symbol_soft_cuda.launches:
         _soft.symbol_soft_cuda.launches[rows] = 0
+    for src in _sync.sync_scan_cuda.launches:
+        _sync.sync_scan_cuda.launches[src] = 0

@@ -1,5 +1,5 @@
 """The sync state machine: the hand-written CUDA kernel (csrc/sync_scan.cu)
-and its plain twin, one contract:
+and its plain twins, two contracts.  sync_scan:
 
     raw, norm (C, S) float64, valid (C, S) bool,
     ints (C, 6) int32 [state, sss, misses, collecting, total, frames],
@@ -11,10 +11,15 @@ the lax.scan of opv_tpu/rx/sync.py::sync_scan (`:166`, not a Pallas
 kernel): HUNTING -> VERIFYING on a sync hit past the 24-symbol warm-up,
 VERIFYING -> LOCKED (frame ready) 2144 symbols after it, LOCKED re-checks
 sync every 2168 symbols (OK, a flywheel miss, or lost lock at the 5th) and
-emits a frame 2144 symbols after each check while collecting.  Every
-output is an integer or a copy of an input, so the kernel and the twin
-agree bit for bit.  The twin walks each channel's symbols over Python
-ints and floats.
+emits a frame 2144 symbols after each check while collecting.
+sync_correlate_scan takes the soft stream soft_ext (C, 23 + S) in place of
+raw and norm, computes them as rx/sync.py::sync_correlate does, and
+returns them after the other outputs.  The kernel is one template over its
+input: GivenSync (raw, norm given) and SoftSync (the correlation as its
+input stage), each counted on its own.  Every output is an integer, a copy
+of an input, or the twin's float64 adds and division in the twin's order,
+so the kernel and the twins agree bit for bit.  The twin walks each
+channel's symbols over Python ints and floats.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.ops import build
+from opv_tpu_torch.rx.sync import sync_correlate
 
 HUNT, VERIFY, LOCKED = 0, 1, 2
 #: transition codes per symbol (opv_tpu/rx/sync.py EV_*)
@@ -129,37 +135,115 @@ def sync_scan_reference(raw: torch.Tensor, norm: torch.Tensor,
             torch.tensor(out_f, **i32).reshape(c, s))
 
 
-def sync_scan_cuda(raw: torch.Tensor, norm: torch.Tensor, valid: torch.Tensor,
-                   ints: torch.Tensor, sync_q: torch.Tensor):
-    """The kernel: one thread per channel, on raw's stream."""
-    if not raw.is_cuda:
-        raise ValueError("the CUDA sync_scan kernel needs a CUDA tensor")
-    _check(raw, norm, valid, ints, sync_q)
+def _check_soft(soft_ext, valid, ints, sync_q):
+    if soft_ext.dim() != 2 or soft_ext.dtype != torch.float64 \
+            or soft_ext.shape[1] < CONFIG.sync_bits - 1:
+        raise ValueError(f"soft_ext must be (C, 23 + S) float64, got "
+                         f"{tuple(soft_ext.shape)} {soft_ext.dtype}")
+    c, s = soft_ext.shape[0], soft_ext.shape[1] - (CONFIG.sync_bits - 1)
+    if valid.shape != (c, s):
+        raise ValueError(f"valid must be ({c}, {s}), got {tuple(valid.shape)}")
+    if ints.shape != (c, INT_WIDTH) or sync_q.shape != (c,):
+        raise ValueError(f"ints must be ({c}, {INT_WIDTH}) and sync_q ({c},), "
+                         f"got {tuple(ints.shape)}, {tuple(sync_q.shape)}")
+
+
+def sync_correlate_scan_reference(soft_ext: torch.Tensor, valid: torch.Tensor,
+                                  ints: torch.Tensor, sync_q: torch.Tensor):
+    """The plain twin (CPU): rx/sync.py::sync_correlate, then
+    sync_scan_reference; the machine's outputs, then raw and norm."""
+    _check_soft(soft_ext, valid, ints, sync_q)
+    raw, norm = sync_correlate(soft_ext)
+    return (*sync_scan_reference(raw, norm, valid, ints, sync_q), raw, norm)
+
+
+def _state_outputs(ints, sync_q, shape):
+    """The carry in, the carry out and the machine's five (C, S) outputs,
+    allocated on ints' device."""
+    dev = ints.device
+    ints = ints.to(dtype=torch.int32).contiguous()
+    sync_q = sync_q.to(device=dev, dtype=torch.float64).contiguous()
+    outs = (torch.empty_like(ints), torch.empty_like(sync_q),
+            torch.empty(shape, dtype=torch.bool, device=dev),
+            torch.empty(shape, dtype=torch.float64, device=dev),
+            *(torch.empty(shape, dtype=torch.int32, device=dev)
+              for _ in range(3)))
+    return ints, sync_q, outs
+
+
+def launch(lib, raw, norm, valid, ints, sync_q):
+    """One GivenSync launch of `lib`'s opv_sync_scan on raw's stream
+    (checked tensors; no count; nothing to launch for no channels).  `lib`
+    is the port's library or another build exporting the same C entry
+    point.  Returns sync_scan's seven outputs."""
     c, s = raw.shape
     dev = raw.device
     raw, norm = raw.contiguous(), norm.contiguous()
-    valid = valid.to(torch.bool).contiguous()
-    ints = ints.to(device=dev, dtype=torch.int32).contiguous()
-    sync_q = sync_q.to(device=dev, dtype=torch.float64).contiguous()
-    ints_out = torch.empty_like(ints)
-    q_out = torch.empty_like(sync_q)
-    ready = torch.empty((c, s), dtype=torch.bool, device=dev)
-    q = torch.empty((c, s), dtype=torch.float64, device=dev)
-    events, ev_misses, ev_frames = (torch.empty((c, s), dtype=torch.int32,
-                                                device=dev) for _ in range(3))
+    valid = valid.to(device=dev, dtype=torch.bool).contiguous()
+    ints, sync_q, outs = _state_outputs(ints.to(dev), sync_q, (c, s))
     if c:
-        lib = build.library()
         thr = (ctypes.c_double * 3)(*_thresholds())
         cnt = (ctypes.c_int * 4)(*_counts())
         err = lib.opv_sync_scan(
             raw.data_ptr(), norm.data_ptr(), valid.data_ptr(), c, s, thr, cnt,
-            ints.data_ptr(), sync_q.data_ptr(), ints_out.data_ptr(),
-            q_out.data_ptr(), ready.data_ptr(), q.data_ptr(),
-            events.data_ptr(), ev_misses.data_ptr(), ev_frames.data_ptr(),
+            ints.data_ptr(), sync_q.data_ptr(), *(t.data_ptr() for t in outs),
             build.stream_ptr(raw))
         build.check(lib, err, "sync_scan")
-        sync_scan_cuda.launches += 1
-    return ints_out, q_out, ready, q, events, ev_misses, ev_frames
+    return outs
 
 
-sync_scan_cuda.launches = 0
+def launch_soft(lib, soft_ext, valid, ints, sync_q):
+    """One SoftSync launch of `lib`'s opv_sync_correlate_scan on soft_ext's
+    stream (checked tensors; no count; nothing to launch for no channels):
+    soft_ext's rows are read in place at their stride.  Returns
+    sync_correlate_scan's nine outputs."""
+    c, n = soft_ext.shape
+    s = n - (CONFIG.sync_bits - 1)
+    dev = soft_ext.device
+    if soft_ext.stride(1) != 1 or (c > 1 and soft_ext.stride(0) < n):
+        soft_ext = soft_ext.contiguous()
+    ld = soft_ext.stride(0) if c > 1 else n
+    valid = valid.to(device=dev, dtype=torch.bool).contiguous()
+    ints, sync_q, outs = _state_outputs(ints.to(dev), sync_q, (c, s))
+    raw, norm = (torch.empty((c, s), dtype=torch.float64, device=dev)
+                 for _ in range(2))
+    if c:
+        thr = (ctypes.c_double * 4)(*_thresholds(), CONFIG.sync_min_energy)
+        cnt = (ctypes.c_int * 4)(*_counts())
+        err = lib.opv_sync_correlate_scan(
+            soft_ext.data_ptr(), ld, valid.data_ptr(), c, s, thr, cnt,
+            CONFIG.sync_word, ints.data_ptr(), sync_q.data_ptr(),
+            *(t.data_ptr() for t in outs), raw.data_ptr(), norm.data_ptr(),
+            build.stream_ptr(soft_ext))
+        build.check(lib, err, "sync_correlate_scan")
+    return (*outs, raw, norm)
+
+
+def sync_scan_cuda(raw: torch.Tensor, norm: torch.Tensor, valid: torch.Tensor,
+                   ints: torch.Tensor, sync_q: torch.Tensor):
+    """The kernel on given raw/norm (GivenSync): a warp per channel, on
+    raw's stream."""
+    if not raw.is_cuda:
+        raise ValueError("the CUDA sync_scan kernel needs a CUDA tensor")
+    _check(raw, norm, valid, ints, sync_q)
+    out = launch(build.library(), raw, norm, valid, ints, sync_q)
+    if raw.shape[0]:
+        sync_scan_cuda.launches["GivenSync"] += 1
+    return out
+
+
+def sync_correlate_scan_cuda(soft_ext: torch.Tensor, valid: torch.Tensor,
+                             ints: torch.Tensor, sync_q: torch.Tensor):
+    """The kernel with the correlation as its input stage (SoftSync): a
+    warp per channel, on soft_ext's stream."""
+    if not soft_ext.is_cuda:
+        raise ValueError("the CUDA sync_scan kernel needs a CUDA tensor")
+    _check_soft(soft_ext, valid, ints, sync_q)
+    out = launch_soft(build.library(), soft_ext, valid, ints, sync_q)
+    if soft_ext.shape[0]:
+        sync_scan_cuda.launches["SoftSync"] += 1
+    return out
+
+
+#: launches per input (one kernel template, two instantiations)
+sync_scan_cuda.launches = {"GivenSync": 0, "SoftSync": 0}

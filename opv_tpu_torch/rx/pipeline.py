@@ -4,9 +4,10 @@ channel axis).
 
 `rx_batch` mirrors the reference's batch mode (opv-demod.cpp:1127-1216):
 one CFO estimate, one demodulate pass over the whole capture, sync scan,
-frame decode.  Each block runs the track_symbols kernel, the sync
-correlation (torch), the sync_scan kernel, the payload gather (torch) and
-the Viterbi kernel on the block's device, with no host round trip.
+frame decode.  Each block runs the track_symbols kernel, the sync_scan
+kernel with the sync correlation as its input stage, the payload gather
+(torch) and the Viterbi kernel on the block's device, with no host round
+trip.
 """
 
 from __future__ import annotations
@@ -21,8 +22,7 @@ from opv_tpu_torch.rx.demod import (LoopState, demodulate_block,
                                     require_float64)
 from opv_tpu_torch.rx.frame_decoder import decode_payloads
 from opv_tpu_torch.rx.sync import (SyncTrackerState, extract_payload_windows,
-                                   sync_correlate, sync_scan,
-                                   sync_tracker_init)
+                                   sync_correlate_scan, sync_tracker_init)
 
 
 def rx_block_from_soft(soft: torch.Tensor, sym_valid: torch.Tensor,
@@ -35,9 +35,10 @@ def rx_block_from_soft(soft: torch.Tensor, sym_valid: torch.Tensor,
     c = soft.shape[0]
     v = sym_valid.sum(-1)
     soft_cat = torch.cat([hist, soft], -1)
-    raw, norm = sync_correlate(soft_cat[:, eb - (CONFIG.sync_bits - 1):])
-    tstate2, ready, q, events, ev_misses, ev_frames = sync_scan(
-        tstate, raw, norm, sym_valid)
+    tstate2, raw, norm, ready, q, events, ev_misses, ev_frames = \
+        sync_correlate_scan(tstate,
+                            soft_cat[:, eb - (CONFIG.sync_bits - 1):],
+                            sym_valid)
     payloads, qs, slot_valid, t_idx = extract_payload_windows(
         soft_cat, ready, q, max_frames)
     frames, metrics, ok = decode_payloads(payloads.reshape(-1, eb))

@@ -100,19 +100,46 @@ def sync_scan(state: SyncTrackerState, raw: torch.Tensor, norm: torch.Tensor,
     ops/registry.py::sync_scan: the sync_scan CUDA kernel on a CUDA
     tensor, its plain twin on a CPU tensor.
     """
-    # imported here: ops/ reaches this module through rx/fast.py
+    # imported here: ops/ imports this module
     from opv_tpu_torch.ops import registry
+    ints2, q2, ready, q, events, ev_misses, ev_frames = registry.sync_scan(
+        raw, norm, valid, *_carry(state, raw.device))
+    return (_tracker(ints2, q2), ready, q, events, ev_misses, ev_frames)
+
+
+def sync_correlate_scan(state: SyncTrackerState, soft_ext: torch.Tensor,
+                        valid: torch.Tensor):
+    """sync_correlate, then sync_scan, in one: soft_ext (C, 23 + S) soft
+    symbols (23 of history first; any row stride, e.g. the view
+    soft_cat[:, eb - 23:]), valid (C, S).
+
+    Returns (new_state, raw, norm, ready, q, events, ev_misses,
+    ev_frames), each as the two functions give it.  Through
+    ops/registry.py::sync_correlate_scan: one launch of the sync_scan
+    kernel with the correlation as its input stage on a CUDA tensor;
+    sync_correlate and the machine's twin on a CPU tensor.
+    """
+    from opv_tpu_torch.ops import registry
+    (ints2, q2, ready, q, events, ev_misses, ev_frames, raw,
+     norm) = registry.sync_correlate_scan(soft_ext, valid,
+                                          *_carry(state, soft_ext.device))
+    return (_tracker(ints2, q2), raw, norm, ready, q, events, ev_misses,
+            ev_frames)
+
+
+def _carry(state: SyncTrackerState, dev):
+    """The state as the kernel's (C, 6) int32 carry and (C,) sync_q."""
     ints = torch.stack([state.state, state.sss, state.misses,
                         state.collecting.to(torch.int32), state.total,
                         state.frames], -1).to(torch.int32)
-    ints2, q2, ready, q, events, ev_misses, ev_frames = registry.sync_scan(
-        raw, norm, valid, ints.to(raw.device),
-        state.sync_q.to(device=raw.device, dtype=torch.float64))
-    new = SyncTrackerState(state=ints2[:, 0], sss=ints2[:, 1],
-                           misses=ints2[:, 2], sync_q=q2,
-                           collecting=ints2[:, 3] != 0, total=ints2[:, 4],
-                           frames=ints2[:, 5])
-    return new, ready, q, events, ev_misses, ev_frames
+    return ints.to(dev), state.sync_q.to(device=dev, dtype=torch.float64)
+
+
+def _tracker(ints: torch.Tensor, sync_q: torch.Tensor) -> SyncTrackerState:
+    return SyncTrackerState(state=ints[:, 0], sss=ints[:, 1],
+                            misses=ints[:, 2], sync_q=sync_q,
+                            collecting=ints[:, 3] != 0, total=ints[:, 4],
+                            frames=ints[:, 5])
 
 
 def extract_payload_windows(soft_cat: torch.Tensor, ready: torch.Tensor,

@@ -5,7 +5,8 @@
 Every channel runs the complete feedback-loop pipeline, tuple for tuple
 the same as C independent StreamingDemodulators, but all channels advance
 in one launch of each kernel per chunk (track_symbols with a block per
-channel, sync_scan with a thread per channel, one Viterbi batch).
+channel, sync_scan with a warp per channel and the sync correlation as
+its input stage, one Viterbi batch).
 
 Per-channel chunk boundaries are kept exactly for equal-rate channels
 (each channel processes precisely 86,720-sample chunks whatever its own

@@ -17,11 +17,13 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (MODES_WEAK_GAIN, capture,  # noqa: E402
                         drive_wideband, golden_frames, hold_stream_kernels,
-                        hold_sync, hold_track, impaired_feed, k4_chunks,
-                        same_stream, same_tracking, same_wideband,
-                        serve_eager, spy_kernels, stream_twin_checks,
-                        sync_stress, TRACK_EDGE_CASES, track_edge_case,
-                        track_inputs, viterbi_inputs, wideband_k4)
+                        hold_sync, hold_sync_soft, hold_track,
+                        impaired_feed, k4_chunks, same_stream,
+                        same_tracking, same_wideband, serve_eager,
+                        soft_stress, spy_kernels, stream_twin_checks,
+                        SYNC_EDGE_CASES, sync_edge_case, sync_stress,
+                        TRACK_EDGE_CASES, track_edge_case, track_inputs,
+                        viterbi_inputs, wideband_k4)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
 from opv_tpu_torch.ops import registry  # noqa: E402
@@ -441,15 +443,93 @@ def test_track_symbols_kernel_at_ring_edges(cuda_dev, name):
 
 
 def test_sync_scan_kernel_matches_twin(cuda_dev):
-    """The state machine kernel bit for bit against its twin on inputs
-    that reach every transition (chip_smoke.sync_stress)."""
+    """The state machine kernel (GivenSync) bit for bit against its twin on
+    inputs that reach every transition (chip_smoke.sync_stress), counted
+    once as GivenSync."""
     from opv_tpu_torch.ops import sync_scan as sc
-    n0 = sc.sync_scan_cuda.launches
+    n0 = dict(sc.sync_scan_cuda.launches)
     (_, _, ready, _, events, _, _), _ = hold_sync(*sync_stress(64, 2284, cuda_dev),
                                                   "stress")
-    assert sc.sync_scan_cuda.launches == n0 + 1
+    assert sc.sync_scan_cuda.launches == {"GivenSync": n0["GivenSync"] + 1,
+                                          "SoftSync": n0["SoftSync"]}
     assert set(events.unique().tolist()) == set(range(6))
     assert int(ready.sum()) > 0
+
+
+#: (channels, symbols) of the sync kernel's shape grid: every width at
+#: every tile edge and the main path's chunk; a whole capture at 1 and 3
+SYNC_SHAPES = [(c, s) for c in (1, 3, 64, 133) for s in (0, 1, 31, 32, 33, 2284)] \
+    + [(1, 26_000), (3, 26_000)]
+
+
+@pytest.mark.parametrize("channels,steps", SYNC_SHAPES)
+def test_sync_scan_kernels_at_shapes(cuda_dev, channels, steps):
+    """Both instantiations of the sync kernel bit for bit against their
+    twins at every width and tile edge: GivenSync on sync_stress,
+    SoftSync on soft_stress (raw and norm too), each counted once."""
+    from opv_tpu_torch.ops import sync_scan as sc
+    n0 = dict(sc.sync_scan_cuda.launches)
+    hold_sync(*sync_stress(channels, steps, cuda_dev), f"{channels}x{steps}")
+    hold_sync_soft(*soft_stress(channels, steps, cuda_dev),
+                   f"{channels}x{steps}")
+    assert sc.sync_scan_cuda.launches == {"GivenSync": n0["GivenSync"] + 1,
+                                          "SoftSync": n0["SoftSync"] + 1}
+
+
+@pytest.mark.parametrize("name", SYNC_EDGE_CASES)
+def test_sync_scan_kernels_at_edges(cuda_dev, name):
+    """Both instantiations on chip_smoke.sync_edge_case (GivenSync on the
+    correlation of the same soft stream): short rows, 133 channels, a
+    whole capture, events at lanes 0 and 31 and two in a tile, carries at
+    the int32 edges, a view 8 bytes off 16."""
+    from opv_tpu_torch.rx.sync import sync_correlate
+    x, valid, ints, q = sync_edge_case(name, cuda_dev)
+    got, _ = hold_sync_soft(x, valid, ints, q, name)
+    raw, norm = sync_correlate(x)
+    hold_sync(raw, norm, valid, ints, q, name)
+    if name == "tile edges":
+        at = [np.flatnonzero(e) for e in got[4].cpu().numpy()]
+        lanes = {int(t) % 32 for row in at for t in row}
+        assert {0, 31} <= lanes
+        assert any((np.diff(row // 32) == 0).any() for row in at)
+        assert set(got[4].unique().tolist()) == set(range(6))
+    if name == "view":
+        assert x.data_ptr() % 16 == 8 and x.stride(0) > x.shape[1]
+
+
+def test_rx_block_runs_one_soft_sync_launch(cuda_dev, monkeypatch):
+    """rx_block_from_soft on the card (soft_stress's stream as the block,
+    its first 23 symbols the history's last): one SoftSync launch, no
+    GivenSync launch and no torch correlation (sync_correlate raises if
+    called); every output equal to the same block on the host."""
+    from opv_tpu_torch.ops import sync_scan as sc
+    from opv_tpu_torch.rx import pipeline, sync
+    x, valid, _, _ = soft_stress(8, 2284, torch.device("cpu"))
+    hist = torch.zeros((8, EB), dtype=torch.float64)
+    hist[:, -23:] = x[:, :23]
+
+    def run(dev):
+        st = sync.sync_tracker_init(8, device=dev)
+        return pipeline.rx_block_from_soft(x[:, 23:].to(dev), valid.to(dev),
+                                           st, hist.to(dev), 3,
+                                           with_events=True)
+    want = run(torch.device("cpu"))
+
+    def no_torch_correlation(*_):
+        raise AssertionError("sync_correlate ran on the tracking path")
+    monkeypatch.setattr(sync, "sync_correlate", no_torch_correlation)
+    monkeypatch.setattr(sc, "sync_correlate", no_torch_correlation)
+    n0 = dict(sc.sync_scan_cuda.launches)
+    got = run(cuda_dev)
+    torch.cuda.synchronize()
+    assert sc.sync_scan_cuda.launches == {"GivenSync": n0["GivenSync"],
+                                          "SoftSync": n0["SoftSync"] + 1}
+    assert int(got[0]["events"].count_nonzero()) > 0
+    for k, w in want[0].items():
+        assert torch.equal(got[0][k].cpu(), w), k
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(got[2].cpu(), want[2])
 
 
 @pytest.mark.parametrize("name,gold", [("bert3", "bert3.frames"),
@@ -464,7 +544,7 @@ def test_streaming_on_card_matches_cpu(cuda_dev, name, gold):
     sd = StreamingDemodulator(device=cuda_dev)
     got = sd.feed(x) + sd.flush()
     counts = registry.launch_counts()
-    assert min(counts[k] for k in ("track_symbols", "sync_scan",
+    assert min(counts[k] for k in ("track_symbols", "sync_scan[SoftSync]",
                                    "viterbi_r4")) > 0
     assert [t[0] for t in got] == golden_frames(gold)
     sd = StreamingDemodulator(device="cpu")

@@ -150,7 +150,12 @@ def test_cuda_entry_point_without_cuda_raises():
         sync_scan.sync_scan_cuda(f64, f64, f64.bool(),
                                  torch.zeros((1, 6), dtype=torch.int32),
                                  torch.zeros(1, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        sync_scan.sync_correlate_scan_cuda(
+            torch.zeros((1, 26), dtype=torch.float64), f64.bool(),
+            torch.zeros((1, 6), dtype=torch.int32),
+            torch.zeros(1, dtype=torch.float64))
     assert viterbi.viterbi_r4_cuda.launches == 0
     assert phase_track.phase_track_cuda.launches == 0
     assert track_symbols.track_symbols_cuda.launches == 0
-    assert sync_scan.sync_scan_cuda.launches == 0
+    assert sync_scan.sync_scan_cuda.launches == {"GivenSync": 0, "SoftSync": 0}
