@@ -147,14 +147,37 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               with the reference's five transition lines, and opv_modem -l
               without --fast as a process: echo p50/p95 beside phase 9's
               --fast numbers
- 12. the kernels JSON line (launches: the main path's, for phase_track the
+ 12. dense    the feed-forward dense receiver and the coherent
+              demodulator: (a) rx_fast on smoke-64x20 (max_frames 22):
+              every frame whose payload fits valid, byte-exact, at its
+              sync start with metric 0 or one sample late (the sync apex's
+              plateau); ms per call (CUDA events, median of 5), device ms
+              by stage and by kernel (torch.profiler), peak memory; (b)
+              MultiChannelDemodulator(64, block_frames 4) on the stream
+              phase's feed: channels 0-55 every frame once, byte-exact,
+              at its position (+-1); channels 56-63 (the gap bursts) on
+              the card equal to the same receiver on the cpu given the
+              card's CFO estimates (every block's slots held); host ms per
+              block, Msamples/s, the multiple of real time, peak memory;
+              (c) WidebandReceiver(engine="fast") at K = 64 on the wideband
+              phase's carriers at the wire level: frames decoded of 768 and
+              ms per quantum beside the locked engine on the same feed;
+              on a K = 4 cut of those carriers the card equal to the cpu
+              as in (b); (d) opv_demod --fast -r -q on bert3 and raw3 (the
+              goldens) and opv_demod -c on bert3 (the reference's report,
+              rc 1) in this process; the coherent loop's ms per symbol on
+              the card against bert3's 0.122 s of air, its soft values
+              against the cpu's; rx_fast's first Viterbi call and -c's
+              SoftSync call held against the twins after the count
+ 13. the kernels JSON line (launches: the main path's, for phase_track the
      cli phase's opv_mod runs, for track_symbols and sync_scan[SoftSync]
      the tracking phase's (b)-(d), for sync_scan[GivenSync] its route's
      in (a); launches_stream: the stream phase's two runs;
      launches_modes: the two pipelined runs of the modes phase;
      launches_cli: the cli phase's in-process runs; launches_wideband: the
      wideband phase's runs (b)-(e); launches_tracking: the tracking
-     phase's (b)-(d)), the card line, then the result line
+     phase's (b)-(d); launches_dense: the dense phase's runs (a)-(d)
+     without its stage timings), the card line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 There is no CPU fallback: without a CUDA device it exits non-zero and
@@ -320,6 +343,37 @@ SYNC_OPS_PER_SYMBOL = 30
 #: float64 operations per symbol of sync_scan's SoftSync input stage: 24
 #: adds to raw, 24 to the energy, one division
 SYNC_F64_OPS_PER_SYMBOL = 2 * 24 + 1
+#: the dense phase: rx_fast's frame slots at smoke-64x20 (its 20 frames and
+#: two spare) and its timed calls; MultiChannelDemodulator's block; the K
+#: of the wideband cut held against the cpu
+DENSE_MAX_FRAMES = 22
+DENSE_REPS = 5
+DENSE_BF = 4
+DENSE_CUT_K = 4
+#: rx_fast on the card against the cpu given the same CFO: sync quality
+#: within DENSE_Q_TOL (float32 sums in another order); a start one sample
+#: away only at a plateau tie of the MSK sync apex, where the raw
+#: correlation of the two samples agrees within DENSE_PLATEAU_RTOL (a few
+#: float32 ulps of a 24-term sum)
+DENSE_Q_TOL = 1e-5
+DENSE_PLATEAU_RTOL = 1e-6
+#: a transmitted frame detected one sample late on that plateau: its
+#: payload is read one sample off the symbol grid, and the last frame of a
+#: transmission then takes a sample of the zero flush into its last symbol
+#: (metric 1 in both packages); at its exact start the metric must be 0
+DENSE_LATE_METRIC = 16
+#: the coherent loop on the card against the cpu: soft values within
+#: COHERENT_RTOL of max|soft| over the first COHERENT_SYMBOLS symbols of
+#: bert3.  The loop is chaotic: rounding differences grow ~1e-14 -> 1e-8
+#: over bert3's 6,604 symbols (cpu against the JAX package)
+COHERENT_RTOL = 1e-9
+COHERENT_SYMBOLS = 320
+#: the reference binary's report of opv-demod -c < bert3.iq
+#: (tests/test_coherent.py)
+COHERENT_LINES = ("Estimated carrier offset: 1430.0 Hz",
+                  "Demodulated 6604 symbols, final AFC offset: 2000.0 Hz",
+                  "Summary: 0 frames (0 perfect, 0 errors)",
+                  "Final state: HUNTING, AFC: 2000.0 Hz")
 
 
 def log(msg: str) -> None:
@@ -1694,16 +1748,17 @@ def phase_cli(x, frames, delays, dev, card, fp64_ops_per_s: float):
                 phase_track=kernel, tx=tx, demod=demod, processes=procs)
 
 
-def wideband_feed(dev):
-    """wideband-64: (n,) complex64 on `dev`, WB_K channels each carrying
-    WB_FRAMES BERT frames of its own station (callsign CH<c>, frame_num
-    arange + 100 c), channel c starting after WB_LEAD + WB_LEAD_STEP c
-    channel samples; summed in complex128 by the port's simulation
-    helpers.  Returns (x, the frames by channel [[bytes]])."""
+def wideband_feed(dev, k: int | None = None):
+    """wideband-64: (n,) complex64 on `dev`, k channels (WB_K unless
+    given) each carrying WB_FRAMES BERT frames of its own station
+    (callsign CH<c>, frame_num arange + 100 c), channel c starting after
+    WB_LEAD + WB_LEAD_STEP c channel samples; summed in complex128 by the
+    port's simulation helpers.  Returns (x, the frames by channel
+    [[bytes]])."""
     import torch
     from opv_tpu_torch.core.framing import build_bert_frame
     from opv_tpu_torch.rx.channelizer import msk_wideband, synthesize_wideband
-    k, frames, x = WB_K, [], None
+    k, frames, x = k or WB_K, [], None
     for c in range(k):
         fr = build_bert_frame(f"CH{c:02d}",
                               frame_num=np.arange(WB_FRAMES) + 100 * c)
@@ -2963,6 +3018,501 @@ def phase_tracking(dev, card, int_ops_per_s: float, fast_echo: dict):
                 goldens=goldens, tracking_64=mc, cli=cli)
 
 
+DENSE_KEYS = ("frames", "metrics", "frame_valid", "sync_q", "starts",
+              "freq_offset")
+
+
+def dense_host(out: dict) -> dict:
+    """An rx_fast result's arrays as numpy."""
+    return {k: out[k].cpu().numpy() for k in DENSE_KEYS}
+
+
+def same_dense(got: dict, want: dict, raw: np.ndarray, what: str):
+    """Two rx_fast results (dense_host) of the same samples and CFO: equal
+    validity; per slot the same start, or one sample away at a plateau tie
+    of `raw` (got's run's raw correlation, (C, M)) in a slot valid in
+    both; frame bytes equal and metrics equal where the start is, unless
+    both metrics exceed WB_LEAK_METRIC (garbage decoded at a signal edge
+    or from leakage, whose bits float order moves); sync quality within
+    DENSE_Q_TOL (WB_GARBAGE_Q_TOL for garbage).  Returns (ties, garbage
+    slots that differ)."""
+    off = 24 * 40
+    if not np.array_equal(got["frame_valid"], want["frame_valid"]):
+        raise AssertionError(f"{what}: frame_valid differs")
+    ties = differ = 0
+    for c, k in np.ndindex(got["starts"].shape):
+        a, b = int(got["starts"][c, k]), int(want["starts"][c, k])
+        ma, mb = int(got["metrics"][c, k]), int(want["metrics"][c, k])
+        garbage = min(ma, mb) > WB_LEAK_METRIC
+        same = (ma == mb and np.array_equal(got["frames"][c, k],
+                                            want["frames"][c, k]))
+        if a != b:
+            ra, rb = raw[c, a - off], raw[c, b - off]
+            if abs(a - b) != 1 or not want["frame_valid"][c, k] \
+                    or abs(ra - rb) > DENSE_PLATEAU_RTOL * abs(ra):
+                raise AssertionError(f"{what}: channel {c} slot {k} starts "
+                                     f"{a} / {b}, raw {ra} / {rb}")
+            ties += 1
+            same = np.array_equal(got["frames"][c, k], want["frames"][c, k])
+        if not same:
+            if not garbage:
+                raise AssertionError(f"{what}: channel {c} slot {k} at {a}: "
+                                     f"metrics {ma} / {mb}, frames equal "
+                                     f"{np.array_equal(got['frames'][c, k], want['frames'][c, k])}")
+            differ += 1
+        dq = abs(float(got["sync_q"][c, k]) - float(want["sync_q"][c, k]))
+        if dq > (WB_GARBAGE_Q_TOL if garbage else DENSE_Q_TOL):
+            raise AssertionError(f"{what}: channel {c} slot {k}: sync "
+                                 f"quality differs by {dq:.3g}")
+    return ties, differ
+
+
+def same_dense_tuples(got, want, what: str) -> int:
+    """Two MultiChannelDemodulator tuple streams whose blocks agreed by
+    same_dense: the same count and channels, positions within one sample
+    (a plateau tie), bytes and metric equal where the position is (unless
+    both metrics exceed WB_LEAK_METRIC), sync quality within DENSE_Q_TOL
+    (WB_GARBAGE_Q_TOL for garbage).  Returns how many positions differ."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} tuples against {len(want)}")
+    ties = 0
+    for g, w in zip(got, want):
+        garbage = min(g[2], w[2]) > WB_LEAK_METRIC
+        ties += g[4] != w[4]
+        if g[0] != w[0] or abs(g[4] - w[4]) > 1 or (
+                g[4] == w[4] and (g[1], g[2]) != (w[1], w[2])
+                and not garbage) \
+                or abs(g[3] - w[3]) > (WB_GARBAGE_Q_TOL if garbage
+                                       else DENSE_Q_TOL):
+            raise AssertionError(f"{what}: tuple {(g[0], g[2], g[3], g[4])} "
+                                 f"against {(w[0], w[2], w[3], w[4])}")
+    return ties
+
+
+def check_dense_frames(got, want, what: str):
+    """got [(sync position, metric, bytes)] of one channel against the
+    transmitted want [(sync position, bytes)]: the same count, each frame
+    byte-exact at its position or one sample away (the plateau), metric 0
+    at its position and at most DENSE_LATE_METRIC one sample away.
+    Returns (frames at their exact position, frames with metric 0)."""
+    got = sorted(got)
+    want = sorted(want)
+    if len(got) != len(want) or any(
+            g[2] != w[1] or abs(g[0] - w[0]) > 1
+            or g[1] > (0 if g[0] == w[0] else DENSE_LATE_METRIC)
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: {[(int(g[0]), int(g[1])) for g in got]}"
+                             f" against positions {[w[0] for w in want]}")
+    return (sum(g[0] == w[0] for g, w in zip(got, want)),
+            sum(g[1] == 0 for g in got))
+
+
+class dense_blocks:
+    """Wrap the rx_fast of stream/multichannel.py, the block step of every
+    MultiChannelDemodulator (WidebandReceiver(engine="fast") included).
+    With record (a list): each block's results are appended (dense_host).
+    With replay (such a list, from a run on the same blocks, each result
+    sliced to this run's channels): each block runs with the recorded CFO
+    estimate, and its slots are held to the record by same_dense on this
+    run's raw correlation.  `stats` counts blocks, ties and differing
+    garbage slots."""
+
+    def __init__(self, record=None, replay=None, what: str = "dense"):
+        self.record, self.replay, self.what = record, replay, what
+        self.stats = dict(blocks=0, ties=0, garbage_differing=0)
+
+    def __enter__(self):
+        from opv_tpu_torch.stream import multichannel
+        self._real = real = multichannel.rx_fast
+
+        def step(block, max_frames):
+            i = self.stats["blocks"]
+            self.stats["blocks"] += 1
+            if self.replay is None:
+                out = real(block, max_frames=max_frames)
+                self.record.append(dense_host(out))
+                return out
+            import torch
+            from opv_tpu_torch.rx.fast import dense_soft, dense_sync
+            want = self.replay[i]
+            foff = torch.from_numpy(want["freq_offset"]).to(block.device)
+            out = real(block, foff, max_frames=max_frames)
+            raw = dense_sync(dense_soft(block, foff))[0].cpu().numpy()
+            t, d = same_dense(dense_host(out), want, raw,
+                              f"{self.what} block {i}")
+            self.stats["ties"] += t
+            self.stats["garbage_differing"] += d
+            return out
+        multichannel.rx_fast = step
+        return self.stats
+
+    def __exit__(self, *exc):
+        from opv_tpu_torch.stream import multichannel
+        multichannel.rx_fast = self._real
+        if exc[0] is None and self.replay is not None \
+                and self.stats["blocks"] != len(self.replay):
+            raise AssertionError(f"{self.what}: {self.stats['blocks']} blocks "
+                                 f"replayed of {len(self.replay)} recorded")
+
+
+def keep_first_call(obj, name: str, held: dict):
+    """Wrap obj.name so that its first call's arguments are kept (tensors
+    cloned) in held[name].  Returns a function that removes the wrap."""
+    import torch
+    fn = getattr(obj, name)
+
+    def call(*a):
+        held.setdefault(name, tuple(v.clone() if isinstance(v, torch.Tensor)
+                                    else v for v in a))
+        return fn(*a)
+    setattr(obj, name, call)
+    return lambda: setattr(obj, name, fn)
+
+
+def dense_smoke(x, frames, delays, dev, card):
+    """(a) rx_fast on smoke-64x20: every frame whose payload fits valid,
+    byte-exact, metric 0, at its start (+-1 sample); time per call, device
+    time by stage and by kernel, peak memory.  Returns (stats, the first
+    Viterbi call's operands, the launches of the stage timings, which are
+    not runs of the path)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.ops import viterbi as vit
+    from opv_tpu_torch.rx import fast
+    from opv_tpu_torch.rx.cfo import estimate_cfo_batch
+    from opv_tpu_torch.rx.frame_decoder import decode_payloads, quantize_soft
+    c, n = x.shape
+    mf = DENSE_MAX_FRAMES
+    held = {}
+    remove = keep_first_call(registry, "viterbi_batch", held)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fast.rx_fast(x, max_frames=mf)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    remove()
+    r = dense_host(out)
+    m_soft = n - 39
+    fits = [[d + k * SPF for k in range(FRAMES)
+             if d + k * SPF + 960 + 2143 * 40 < m_soft] for d in delays]
+    want_frames = [bytes(f) for f in frames.cpu().numpy()]
+    exact = metric0 = 0
+    for ch, starts in enumerate(fits):
+        fv = r["frame_valid"][ch]
+        e, m0 = check_dense_frames(
+            list(zip((int(p) for p in r["starts"][ch][fv] - 960),
+                     (int(m) for m in r["metrics"][ch][fv]),
+                     (bytes(f) for f in r["frames"][ch][fv]))),
+            [(p, want_frames[k]) for k, p in enumerate(starts)],
+            f"dense (a) channel {ch}")
+        exact += e
+        metric0 += m0
+    n_fit = sum(len(f) for f in fits)
+    ms = median_ms(lambda: fast.rx_fast(x, max_frames=mf), DENSE_REPS)
+    # device ms by stage (CUDA events on this call's intermediates)
+    foff = out["freq_offset"]
+    soft = fast.dense_soft(x, foff)
+    raw, norm = fast.dense_sync(soft)
+    starts, _, _ = fast.detect_frames(raw, norm, soft, mf)
+    pay = fast.extract_payloads_dense(soft, starts).reshape(-1, 2144)
+    q, _ = quantize_soft(pay)
+    stages = {
+        "estimate_cfo_batch": lambda: estimate_cfo_batch(x),
+        "dense_soft": lambda: fast.dense_soft(x, foff),
+        "dense_sync": lambda: fast.dense_sync(soft),
+        "detect_frames": lambda: fast.detect_frames(raw, norm, soft, mf),
+        "extract_payloads_dense": lambda: fast.extract_payloads_dense(soft,
+                                                                      starts),
+        "decode_payloads": lambda: decode_payloads(pay),
+    }
+    before = registry.launch_counts()
+    stage_ms = {k: cuda_ms(f, 3) for k, f in stages.items()}
+    vit_ms = cuda_ms(lambda: vit.viterbi_r4_cuda(q), 3)
+    after = registry.launch_counts()
+    timing_launches = {k: after[k] - before[k] for k in after}
+    del soft, raw, norm
+    # device ms by kernel over one call
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fast.rx_fast(x, max_frames=mf)
+        torch.cuda.synchronize(dev)
+    kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    busy = sum(t for t, _, _ in kernels) / 1e3
+    log(f"[dense] (a) rx_fast on smoke-{c}x{FRAMES} (N={n}, max_frames {mf}):"
+        f" {n_fit}/{n_fit} frames whose payload fits valid and byte-exact, "
+        f"{exact} at their sync start with metric 0, the rest one sample "
+        f"late (the plateau; {metric0} with metric 0 in all); "
+        f"{int(out['n_decoded'])} decoded; "
+        f"{ms:.3f} ms a call (CUDA events, median of {DENSE_REPS}) = "
+        f"{c * n / ms / 1e3:.1f} Msamples/s; peak memory "
+        f"{peak / 2**30:.2f} GiB ({card})")
+    log("[dense] (a) device ms by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_ms.items())
+        + f"; the Viterbi kernel alone at B={q.shape[0]} {vit_ms:.4f}")
+    log(f"[dense] (a) torch.profiler, one call: device busy {busy:.3f} ms, "
+        f"{sum(k for _, k, _ in kernels)} kernels")
+    for t, k, key in kernels[:12]:
+        log(f"[dense]   {t / 1e3:8.4f} ms {k:4d}x  {key[:90]}")
+    return dict(frames_fit=n_fit, at_start=exact, metric0=metric0,
+                decoded=int(out["n_decoded"]), ms=ms, stage_ms=stage_ms,
+                viterbi_ms=vit_ms, profiler_busy_ms=busy,
+                profiler_kernels=[(key[:90], t / 1e3, k)
+                                  for t, k, key in kernels[:12]],
+                peak_bytes=peak), held["viterbi_batch"], timing_launches
+
+
+def dense_stream(x, frames, delays, dev, card):
+    """(b) MultiChannelDemodulator(64, block_frames 4) on the stream
+    phase's feed: channels 0-55 every frame once, byte-exact, metric 0, at
+    its position (+-1); the gap-burst channels' tuples equal to the same
+    receiver on the cpu given the card's CFO estimates; host ms per block,
+    Msamples/s, multiple of real time, peak memory."""
+    import torch
+    from opv_tpu_torch.stream import MultiChannelDemodulator
+    feed, want = stream_feed(x, frames, delays, dev)
+    c, n = feed.shape
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mc = MultiChannelDemodulator(c, block_frames=DENSE_BF, device=dev)
+    cuts = [0, mc.window] + list(range(mc.window + mc.advance, n,
+                                       mc.advance)) + [n]
+    out, blocks = [], []
+    t_all = time.perf_counter()
+    for a, b in zip(cuts, cuts[1:]):
+        nb = mc._abs_base
+        t0 = time.perf_counter()
+        out += mc.feed(feed[:, a:b])
+        torch.cuda.synchronize(dev)
+        if mc._abs_base == nb + mc.advance:       # one block completed
+            blocks.append((time.perf_counter() - t0) * 1e3)
+    out += mc.flush()
+    dt = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated(dev)
+    exact = metric0 = 0
+    for ch in range(STREAM_CLEAN):
+        e, m0 = check_dense_frames(
+            [(r[4], r[2], r[1]) for r in out if r[0] == ch],
+            [(p, bytes(f.cpu().numpy())) for f, p in want[ch]],
+            f"dense (b) channel {ch}")
+        exact += e
+        metric0 += m0
+    # the gap-burst channels: a run on the card recording each block, its
+    # tuples equal to the timed run's; then the cpu on those channels given
+    # each block's card CFO estimate, held block by block and tuple by tuple
+    burst = slice(STREAM_CLEAN, c)
+    record = []
+    with dense_blocks(record=record):
+        card_run = MultiChannelDemodulator(c, block_frames=DENSE_BF,
+                                           device=dev)
+        rec_out = card_run.feed(feed) + card_run.flush()
+    same_dense_tuples(rec_out, out, "dense (b) recorded run vs timed run")
+    mine = [(r[0] - STREAM_CLEAN,) + r[1:] for r in rec_out
+            if r[0] >= STREAM_CLEAN]
+    sliced = [{k: v[burst] for k, v in blk.items()} for blk in record]
+    with dense_blocks(replay=sliced, what="dense (b) cpu") as st:
+        mcc = MultiChannelDemodulator(c - STREAM_CLEAN, block_frames=DENSE_BF,
+                                      device="cpu")
+        cpu_out = mcc.feed(feed[burst].cpu()) + mcc.flush()
+    ties = same_dense_tuples(mine, cpu_out, "dense (b) card vs cpu")
+    sent = [{bytes(f.cpu().numpy()) for f, _ in w} for w in want[burst]]
+    n_sent = sum(len(w) for w in sent)
+    burst_true = sum(r[1] in sent[r[0]] for r in mine)
+    msps = c * n / dt / 1e6
+    log(f"[dense] (b) MultiChannelDemodulator({c}, block_frames {DENSE_BF}) "
+        f"on the stream feed ({n} samples a channel, {len(blocks)} "
+        f"block-sized feeds after the first window, then flush): "
+        f"channels 0-{STREAM_CLEAN - 1} every frame once, byte-exact, at its "
+        f"position ({exact} exactly, with metric 0) or one sample late "
+        f"({metric0} with metric 0 in all); channels {STREAM_CLEAN}-{c - 1}: "
+        f"{len(mine)} tuples ({burst_true} of {n_sent} transmitted frames"
+        f") equal to the cpu's given the card's CFO ({st['blocks']} blocks, "
+        f"{st['ties']} plateau ties, {ties} positions one sample apart, "
+        f"{st['garbage_differing']} garbage slots differing in bits); host ms"
+        f" per block {statistics.median(blocks):.3f} (median; "
+        f"{min(blocks):.3f}-{max(blocks):.3f}); {msps:.1f} Msamples/s = "
+        f"{msps / (c * REAL_TIME_MSPS):.2f} x real time; peak memory "
+        f"{peak / 2**30:.2f} GiB ({card})")
+    return dict(tuples=len(out), at_position=exact, metric0=metric0,
+                burst_tuples=len(mine),
+                burst_true=burst_true, burst_sent=n_sent,
+                blocks=st["blocks"], ties=st["ties"], tuple_ties=ties,
+                ms_per_block=blocks, seconds=dt, msamples_s=msps,
+                x_real_time=msps / (c * REAL_TIME_MSPS), peak_bytes=peak)
+
+
+def dense_wideband(dev, card):
+    """(c) WidebandReceiver(engine="fast") on the wideband phase's
+    carriers at the wire level: the frames decoded against those sent and
+    ms per quantum beside the locked engine's on the same feed; a K =
+    DENSE_CUT_K cut of the carriers, card tuples against the cpu's given
+    the card's CFO."""
+    import torch
+    from opv_tpu_torch.stream import WidebandReceiver
+    x, frames = wideband_feed(dev)
+    x = x * WB_WIRE_GAIN
+    n_sent = sum(len(f) for f in frames)
+    owner = {b: ch for ch, fs in enumerate(frames) for b in fs}
+    res = {}
+    for engine in ("fast", "locked"):
+        rx = WidebandReceiver(WB_K, block_frames=WB_BF, engine=engine,
+                              device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = drive_wideband(rx, x)
+        dt = time.perf_counter() - t0
+        true = [r for r in out if r[1] in owner]
+        res[engine] = dict(
+            tuples=len(out), frames=len({r[1] for r in true}),
+            duplicates=len(true) - len({r[1] for r in true}),
+            wrong_channel=sum(owner[r[1]] != r[0] for r in true),
+            garbage=len(out) - len(true),
+            ms_per_quantum=dt * 1e3 * rx.quantum / x.shape[0],
+            seconds=dt)
+        del out, true
+    f, lk = res["fast"], res["locked"]
+    log(f"[dense] (c) WidebandReceiver(engine='fast') K={WB_K}, block_frames "
+        f"{WB_BF}, the wideband carriers x {WB_WIRE_GAIN:.5f} ({x.shape[0]} "
+        f"samples): {f['frames']}/{n_sent} frames decoded "
+        f"({f['duplicates']} twice, {f['wrong_channel']} on another channel, "
+        f"{f['garbage']} garbage tuples); {f['ms_per_quantum']:.3f} ms per "
+        f"quantum on the host clock, the locked engine on the same feed "
+        f"{lk['ms_per_quantum']:.3f} ms ({lk['frames']}/{n_sent} frames) "
+        f"({card})")
+    if f["wrong_channel"]:
+        raise AssertionError(f"dense (c): frames on another channel {f}")
+    del x
+    k = DENSE_CUT_K
+    xk, frames_k = wideband_feed(dev, k)
+    xk = xk * (32767.0 / (k * 16383.0))
+    record = []
+    with dense_blocks(record=record):
+        got = drive_wideband(WidebandReceiver(k, block_frames=WB_BF,
+                                              engine="fast", device=dev), xk)
+    with dense_blocks(replay=record, what=f"dense (c) K={k} cpu") as st:
+        want = drive_wideband(WidebandReceiver(k, block_frames=WB_BF,
+                                               engine="fast", device="cpu"),
+                              xk.cpu())
+    ties = same_dense_tuples(got, want, f"dense (c) K={k} card vs cpu")
+    sent_k = {b for fs in frames_k for b in fs}
+    res["cut"] = dict(k=k, tuples=len(got), blocks=st["blocks"],
+                      ties=st["ties"], tuple_ties=ties,
+                      garbage_differing=st["garbage_differing"],
+                      frames=len({r[1] for r in got if r[1] in sent_k}),
+                      sent=len(sent_k))
+    log(f"[dense] (c) K={k} cut of the same carriers: card tuples equal to "
+        f"the cpu's given the card's CFO ({len(got)} tuples, "
+        f"{res['cut']['frames']}/{len(sent_k)} frames; {st['blocks']} blocks, "
+        f"{st['ties']} plateau ties, {st['garbage_differing']} garbage slots "
+        f"differing in bits)")
+    return res
+
+
+def dense_cli(dev, card):
+    """(d) the CLIs in this process: opv_demod --fast -r -q on bert3 and
+    raw3 (the goldens), opv_demod -c on bert3 (the reference's report, rc
+    1); the coherent loop's ms per symbol on the card, and its soft values
+    against the cpu's.  Returns (stats, the first SoftSync call's
+    operands)."""
+    import torch
+    from opv_tpu_torch.cli import opv_demod
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.rx.coherent import (coherent_state_init,
+                                           demodulate_coherent, pll_gains)
+    from opv_tpu_torch.config import CONFIG
+    for iq, gold in (("bert3.iq", "bert3.frames"), ("raw3.iq", "raw3.bin")):
+        rc, out, err = run_main(opv_demod.main, ["--fast", "-r", "-q"],
+                                golden(iq))
+        if rc != 0 or out != golden(gold):
+            raise AssertionError(f"dense (d) opv_demod --fast < {iq}: rc {rc},"
+                                 f" {len(out)} bytes; {err[-500:]}")
+    held = {}
+    remove = keep_first_call(registry, "sync_correlate_scan", held)
+    t0 = time.perf_counter()
+    rc, out, err = run_main(opv_demod.main, ["-c"], golden("bert3.iq"))
+    cli_s = time.perf_counter() - t0
+    remove()
+    missing = [ln for ln in COHERENT_LINES if ln not in err]
+    if rc != 1 or out or missing:
+        raise AssertionError(f"dense (d) opv_demod -c < bert3.iq: rc {rc}, "
+                             f"missing {missing}")
+    s = torch.from_numpy(capture("bert3"))
+    a, b = pll_gains(50.0)
+
+    def loop(dev_):
+        st = coherent_state_init(1430.0, device=dev_)
+        return demodulate_coherent(s.to(dev_), st, CONFIG.afc_alpha, a, b)
+    loop(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    soft_d, st_d = loop(dev)
+    torch.cuda.synchronize(dev)
+    loop_s = time.perf_counter() - t0
+    soft_c, st_c = loop("cpu")
+    nsym = soft_c.shape[0]
+    k = COHERENT_SYMBOLS
+    err_k = float((soft_d[:k].cpu() - soft_c[:k]).abs().max()
+                  / soft_c[:k].abs().max())
+    err_all = float((soft_d.cpu() - soft_c).abs().max() / soft_c.abs().max())
+    if not err_k <= COHERENT_RTOL:
+        raise AssertionError(f"dense (d) coherent loop: card vs cpu {err_k:.3g}"
+                             f" of max|soft| over {k} symbols")
+    air_s = s.shape[0] / CONFIG.sample_rate
+    log(f"[dense] (d) opv_demod --fast -r -q: bert3.frames and raw3.bin byte "
+        f"for byte; opv_demod -c < bert3.iq: the reference's report (1430.0 "
+        f"Hz, 6604 symbols, AFC 2000.0 Hz, 0 frames, HUNTING), rc 1, "
+        f"{cli_s:.2f} s in this process; the coherent loop on the card "
+        f"{loop_s * 1e3:.1f} ms for {nsym} symbols = "
+        f"{loop_s * 1e3 / nsym:.4f} ms a symbol against {air_s:.3f} s of "
+        f"air ({air_s / loop_s:.3f} x real time); soft card vs cpu "
+        f"{err_k:.3g} of max|soft| over {k} symbols, {err_all:.3g} over all; "
+        f"final AFC card {float(st_d.freq_offset):.1f} / cpu "
+        f"{float(st_c.freq_offset):.1f} Hz ({card})")
+    return dict(cli_coherent_s=cli_s, loop_ms=loop_s * 1e3,
+                loop_ms_per_symbol=loop_s * 1e3 / nsym, symbols=nsym,
+                air_s=air_s, soft_rel_err=err_k,
+                soft_rel_err_all=err_all), held["sync_correlate_scan"]
+
+
+def phase_dense(dev, card):
+    """The feed-forward dense receiver and the coherent demodulator on the
+    card (phase 12)."""
+    import torch
+    from opv_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    x, frames, delays = synthesize(dev)
+    registry.set_viterbi_radix(4)
+    registry.reset_launch_counts()
+    a, vit_ops, timing_launches = dense_smoke(x, frames, delays, dev, card)
+    b = dense_stream(x, frames, delays, dev, card)
+    del x
+    c = dense_wideband(dev, card)
+    d, sync_ops = dense_cli(dev, card)
+    torch.cuda.synchronize(dev)
+    launches = {k: v - timing_launches[k]
+                for k, v in registry.launch_counts().items()}
+    if min(launches["viterbi_r4"], launches["sync_scan[SoftSync]"]) <= 0:
+        raise AssertionError(f"a kernel of the dense phase never launched: "
+                             f"{launches}")
+    # each kernel's first call of the phase against its twin, after the
+    # count
+    _, _, err = hold_viterbi(vit_ops[0], 4, "dense (a)")
+    hold_sync_soft(*sync_ops, "dense (d) opv_demod -c")
+    held = dict(viterbi_r4=dict(shape=list(vit_ops[0].shape),
+                                max_abs_err=err),
+                sync_scan_soft=dict(shape=list(sync_ops[0].shape)))
+    log(f"[dense] rx_fast's Viterbi call {list(vit_ops[0].shape)} and "
+        f"opv_demod -c's SoftSync call {list(sync_ops[0].shape)} "
+        f"bit-identical to their twins")
+    log(f"[dense] launches over (a)-(d) {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, a=a, b=b, c=c, d=d, held=held)
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import torch
@@ -3018,6 +3568,7 @@ def main() -> int:
     del x
     wideband = phase_wideband(dev, card)
     tracking = phase_tracking(dev, card, int_ops_per_s, cli["processes"])
+    dense = phase_dense(dev, card)
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -3032,6 +3583,7 @@ def main() -> int:
         k["launches_cli"] = cli["launches"][k["name"]]
         k["launches_wideband"] = wideband["launches"][k["name"]]
         k["launches_tracking"] = tracking["launches"][k["name"]]
+        k["launches_dense"] = dense["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -3042,7 +3594,8 @@ def main() -> int:
             launches_modes=modes["launches"][key],
             launches_cli=cli["launches"][key],
             launches_wideband=wideband["launches"][key],
-            launches_tracking=tracking["launches"][key], **soft[name]))
+            launches_tracking=tracking["launches"][key],
+            launches_dense=dense["launches"][key], **soft[name]))
     kernels.append(dict(
         name="phase_track", route="cuda",
         source="opv_tpu_torch/csrc/phase_track.cu",
@@ -3053,6 +3606,7 @@ def main() -> int:
         launches_cli=cli["launches"]["phase_track"],
         launches_wideband=wideband["launches"]["phase_track"],
         launches_tracking=tracking["launches"]["phase_track"],
+        launches_dense=dense["launches"]["phase_track"],
         **cli["phase_track"]))
     # the tracking receiver's kernels: ms and bound at C = 64 (one chunk of
     # the golden mix); launches: the tracking phase's (b)-(d), GivenSync's
@@ -3071,12 +3625,13 @@ def main() -> int:
                       else tracking["launches"])[name],
             **{f"launches_{ph}": res["launches"][name] for ph, res in (
                 ("stream", stream), ("modes", modes), ("cli", cli),
-                ("wideband", wideband), ("tracking", tracking))},
+                ("wideband", wideband), ("tracking", tracking),
+                ("dense", dense))},
             **row))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
                       "stream": stream, "modes": modes, "cli": cli,
                       "wideband": wideband, "tracking": tracking,
-                      "peak_bytes": peak}), flush=True)
+                      "dense": dense, "peak_bytes": peak}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,17 +7,20 @@ Layout mirrors opv_tpu/ so each counterpart is easy to find:
   tx/        MSK modulator (the closed-form fast path and the
              reference-exact float64 path) and the TX frame multiplexer
              (COBS, priority-scheduled traffic -> 40 ms frames; host Python)
-  rx/        sync, CFO, dense correlator, Viterbi twins, frame finisher,
-             the locked-grid batch receiver (rx_locked / rx_locked_steady)
-             with its re-acquire / retime functions, the polyphase
-             analysis channelizer (one wideband stream -> K channels),
-             and the reference-parity tracking path (rx/demod.py's
+  rx/        sync, CFO, Viterbi twins, frame finisher, the feed-forward
+             dense receiver (rx/fast.py: dense correlator, detect_frames,
+             rx_fast), the locked-grid batch receiver (rx_locked /
+             rx_locked_steady) with its re-acquire / retime functions, the
+             polyphase analysis channelizer (one wideband stream -> K
+             channels), the reference-parity tracking path (rx/demod.py's
              float64 AFC/TED loop, rx/sync.py's correlator and flywheel,
-             rx/pipeline.py's rx_batch)
+             rx/pipeline.py's rx_batch) and the coherent Costas loop
+             (rx/coherent.py, rx_batch(coherent=True))
   stream/    the streaming receivers: LockedStreamDemodulator (synchronous
              or pipelined, eager serving, int8 rows with AGC, the strided
-             hunt), WidebandReceiver (channelizer + engine) and the
-             tracking receivers StreamingDemodulator and
+             hunt), MultiChannelDemodulator (rx_fast in overlapped
+             blocks), WidebandReceiver (channelizer + either engine) and
+             the tracking receivers StreamingDemodulator and
              MultiChannelTrackingDemodulator, with their checkpoint files
              (save_state / load_state)
   ops/       hand-written CUDA kernels (csrc/*.cu: the Viterbi, the fused
@@ -28,8 +31,9 @@ Layout mirrors opv_tpu/ so each counterpart is easy to find:
              dispatches between them
   io/        the int16 IQ wire format and the UDP frame bridge
   utils/     the reference's stderr formats and JSON-lines metrics
-  cli/       opv_mod, opv_demod (-s --fast, --channels, --wideband) and
-             opv_modem, flag-compatible with the JAX package's
+  cli/       opv_mod, opv_demod (batch, --fast, -c, -s, -s --fast,
+             --channels, --wideband) and opv_modem, flag-compatible with
+             the JAX package's
   entry.py   counterpart of __graft_entry__.entry() (rx_locked on a GPU)
 
 Plain functions on tensors; the device comes from the input tensor (the
@@ -38,6 +42,37 @@ tensors run the plain PyTorch twins; CUDA tensors run the kernels (or
 raise).  Nothing here imports jax or the JAX package.
 """
 
-from opv_tpu_torch.config import CONFIG
+from opv_tpu_torch.config import CONFIG, OPVConfig
 
-__all__ = ["CONFIG"]
+__all__ = [
+    "OPVConfig", "CONFIG",
+    # lazy (see __getattr__): importing the package loads no receiver
+    "StreamingDemodulator", "MultiChannelDemodulator",
+    "MultiChannelTrackingDemodulator",
+    "rx_batch", "rx_fast", "rx_locked",
+    "modulate_frames", "encode_frame", "build_bert_frame",
+    "TxMultiplexer",
+]
+
+_LAZY = {
+    "StreamingDemodulator": "opv_tpu_torch.stream",
+    "MultiChannelDemodulator": "opv_tpu_torch.stream",
+    "MultiChannelTrackingDemodulator": "opv_tpu_torch.stream",
+    "rx_batch": "opv_tpu_torch.rx.pipeline",
+    "rx_fast": "opv_tpu_torch.rx.fast",
+    "rx_locked": "opv_tpu_torch.rx.locked",
+    "modulate_frames": "opv_tpu_torch.tx",
+    "encode_frame": "opv_tpu_torch.core",
+    "build_bert_frame": "opv_tpu_torch.core",
+    "TxMultiplexer": "opv_tpu_torch.tx.multiplexer",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module 'opv_tpu_torch' has no attribute "
+                             f"{name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)

@@ -1,10 +1,16 @@
-"""Dense correlator bank and dilated sync correlation (acquisition).
+"""The feed-forward dense receiver (counterpart of opv_tpu/rx/fast.py):
+the dense correlator bank, the dilated sync correlation, frame detection
+and the payload gather, and rx_fast, which chains them with the CFO grid
+and the frame finisher.
 
 dense_soft evaluates the locked-grid tone correlation at all 40 sample
 phases with one real (C, M+1, 80) x (C, 80, 40*8) contraction; dense_sync
 correlates the 24-symbol sync pattern against that stream at dilation 40
 as 24 shifted, scaled adds in exact float32 (no convolution library, so no
-TF32 on the card)."""
+TF32 on the card).  detect_frames keeps the first max_frames qualifying
+sync peaks of each channel by a cumulative count on the device, so a block
+runs from samples to decoded frames without a host round trip; the
+Viterbi is one launch over every (channel, slot) payload."""
 
 from __future__ import annotations
 
@@ -15,11 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from opv_tpu_torch.config import CONFIG
+from opv_tpu_torch.rx.cfo import estimate_cfo_batch
 from opv_tpu_torch.rx.sync import normalized_sync, sync_pattern
 
 _TWO_PI = 2.0 * math.pi
 _SPS = CONFIG.samples_per_symbol
 _SB = CONFIG.sync_bits
+_EB = CONFIG.encoded_bits
 
 
 def tone_vectors(freq_offset: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -113,3 +121,119 @@ def dense_sync(soft: torch.Tensor, stride: int = 1):
         raw = raw + w if pat[i] > 0 else raw - w
         energy = energy + mag[:, i * dil: i * dil + length]
     return raw, normalized_sync(raw, energy)
+
+
+def detect_frames(raw: torch.Tensor, norm: torch.Tensor, soft: torch.Tensor,
+                  max_frames: int):
+    """Frame sync positions: threshold, tap-dominance guard, local max of
+    the raw correlation over +-20 samples, timing-phase vote.
+
+    raw/norm: (C, M) from dense_sync(soft); soft: the (C, M_soft) dense
+    stream they came from.  Returns (starts (C, F) int32 sample index of the
+    first payload soft value (a sync window at n has its payload at n +
+    24*40), valid (C, F) bool, q (C, F) the normalized sync at the peak).
+    The first F = max_frames qualifying positions of each row are kept in
+    index order; an empty slot has start 959 (t = -1), valid False and q =
+    norm[:, 0], opv_tpu's padding values.
+    """
+    c, m = norm.shape
+    m_soft = soft.shape[-1]
+    dev = soft.device
+    hit = (norm >= CONFIG.sync_hunt_norm_thresh) & \
+        (raw >= CONFIG.sync_hunt_raw_thresh)
+    # tap-dominance guard: at a signal->silence edge a window holding one
+    # strong soft symbol (the other 23 taps in the gap) clears both
+    # thresholds; a true sync spreads its energy over all 24 taps.  The sum
+    # is 24 shifted adds in tap order, the max an exact dilated max pool.
+    mag = soft.abs()
+    energy = torch.zeros_like(raw)
+    for i in range(_SB):
+        energy = energy + mag[:, i * _SPS: i * _SPS + m]
+    amax = F.max_pool1d(mag[:, None], kernel_size=_SB, stride=1,
+                        dilation=_SPS)[:, 0, :m]
+    hit = hit & (amax <= 0.5 * energy)
+    # the normalized metric saturates over a plateau around the true
+    # alignment; the raw correlation peaks at the exact sample
+    wmax = F.max_pool1d(raw[:, None], kernel_size=_SPS + 1, stride=1,
+                        padding=_SPS // 2)[:, 0]
+    prev = F.pad(raw, (1, 0), value=-math.inf)[:, :-1]
+    is_peak = (raw >= wmax) & (raw > prev) & hit
+    # timing-phase vote: a peak at the strongest peak's sample phase
+    # (mod 40, +-1), or with a qualifying sync (+-1 sample) exactly one
+    # frame before or after it (a second burst at another phase)
+    n_idx = torch.arange(m, device=dev)
+    best = torch.argmax(torch.where(is_peak, raw, -math.inf), dim=-1)
+    dph = (n_idx[None, :] - (best % _SPS)[:, None]) % _SPS
+    phase_ok = (dph <= 1) | (dph >= _SPS - 1)
+    dil = hit.clone()
+    dil[:, 1:] |= hit[:, :-1]
+    dil[:, :-1] |= hit[:, 1:]
+    spf = CONFIG.samples_per_frame
+    if m > spf:
+        phase_ok[:, : m - spf] |= dil[:, spf:]
+        phase_ok[:, spf:] |= dil[:, : m - spf]
+    # the payload must fit in the dense soft stream
+    fits = n_idx + _SB * _SPS + (_EB - 1) * _SPS < m_soft
+    mask = is_peak & phase_ok & fits[None, :]
+    # the first max_frames positions of each row, as jnp.nonzero(size=F,
+    # fill_value=-1): rank by a cumulative count, scatter; the overflow
+    # column F is dropped
+    rank = mask.to(torch.int64).cumsum(-1) - 1
+    slot = torch.where(mask & (rank < max_frames), rank, max_frames)
+    t = torch.full((c, max_frames + 1), -1, dtype=torch.int64, device=dev)
+    t.scatter_(1, slot, n_idx.expand(c, m))
+    t = t[:, :max_frames]
+    q = norm.gather(1, t.clamp(min=0))
+    return (t + _SB * _SPS).to(torch.int32), t >= 0, q
+
+
+def extract_payloads_dense(soft: torch.Tensor, starts: torch.Tensor):
+    """(C, F, 2144) payload soft symbols at stride 40 from (C, M) soft, each
+    start clamped to [0, M - (2143*40 + 1)]."""
+    c, f = starts.shape
+    span = (_EB - 1) * _SPS + 1
+    st = starts.to(torch.int64).clamp(0, soft.shape[-1] - span)
+    cols = st[..., None] + _SPS * torch.arange(_EB, device=soft.device)
+    return soft.gather(1, cols.reshape(c, -1)).reshape(c, f, _EB)
+
+
+def rx_fast(samples: torch.Tensor, freq_offset=None, max_frames: int = 8,
+            estimate_cfo_flag: bool = True) -> dict:
+    """The feed-forward pipeline: (C, N) complex64 IQ -> decoded frames, on
+    the samples' device.
+
+    Arbitrary symbol timing and frame positions (dense correlation), one
+    CFO per channel and block (the grid estimate, or freq_offset (C,) Hz,
+    or zero with estimate_cfo_flag=False).  Returns a dict of tensors:
+    frames (C, F, 134) uint8, metrics (C, F) int32, frame_valid (C, F),
+    sync_q (C, F), starts (C, F) int32 sample-resolution payload starts,
+    freq_offset (C,) float32, n_decoded.
+    """
+    c, n = samples.shape
+    min_n = _SB * _SPS + (_EB - 1) * _SPS + _SPS + (_SB - 1) * _SPS
+    if n < min_n:
+        raise ValueError(
+            f"rx_fast needs at least one full frame of samples ({min_n}), "
+            f"got {n}; short captures cannot contain a decodable frame")
+    require_single_precision(samples, "rx_fast")
+    if freq_offset is None:
+        if estimate_cfo_flag:
+            freq_offset = estimate_cfo_batch(samples).to(torch.float32)
+        else:
+            freq_offset = torch.zeros(c, dtype=torch.float32,
+                                      device=samples.device)
+    else:
+        freq_offset = torch.as_tensor(freq_offset, dtype=torch.float32,
+                                      device=samples.device)
+    # imported here: ops/ imports this module
+    from opv_tpu_torch.rx.frame_decoder import decode_payloads
+    soft = dense_soft(samples, freq_offset)
+    raw, norm = dense_sync(soft)
+    starts, valid, q = detect_frames(raw, norm, soft, max_frames)
+    payloads = extract_payloads_dense(soft, starts)
+    frames, metrics, ok = decode_payloads(payloads.reshape(-1, _EB))
+    fv = ok.reshape(c, max_frames) & valid
+    return dict(frames=frames.reshape(c, max_frames, CONFIG.frame_bytes),
+                metrics=metrics.reshape(c, max_frames), frame_valid=fv,
+                sync_q=q, starts=starts, freq_offset=freq_offset,
+                n_decoded=fv.sum())

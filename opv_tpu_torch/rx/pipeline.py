@@ -4,10 +4,11 @@ channel axis).
 
 `rx_batch` mirrors the reference's batch mode (opv-demod.cpp:1127-1216):
 one CFO estimate, one demodulate pass over the whole capture, sync scan,
-frame decode.  Each block runs the track_symbols kernel, the sync_scan
-kernel with the sync correlation as its input stage, the payload gather
-(torch) and the Viterbi kernel on the block's device, with no host round
-trip.
+frame decode.  Each block runs the track_symbols kernel (or, with
+coherent=True, the Costas loop of rx/coherent.py in plain torch), the
+sync_scan kernel with the sync correlation as its input stage, the payload
+gather (torch) and the Viterbi kernel on the block's device, with no host
+round trip.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch
 
 from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.rx.cfo import estimate_cfo
+from opv_tpu_torch.rx.coherent import (coherent_state_init,
+                                       demodulate_coherent, pll_gains)
 from opv_tpu_torch.rx.demod import (LoopState, demodulate_block,
                                     loop_state_init, max_symbols,
                                     require_float64)
@@ -75,42 +78,54 @@ def rx_block(samples: torch.Tensor, n_valid, lstate: LoopState,
 
 def rx_batch(samples, init_offset: float | None = None,
              afc_alpha: float = CONFIG.afc_alpha, dtype: str = "float64",
-             coherent: bool = False, device="cuda"):
+             coherent: bool = False, pll_bw: float = 50.0, device="cuda"):
     """Batch-demodulate a whole capture (the reference's batch mode).
 
     samples: (N,) complex (numpy or tensor).  If init_offset is None the
     coarse CFO grid search runs first (opv-demod.cpp:1166).  coherent=True
-    and dtype="float32" are ROADMAP item 11b.  Runs on
-    `device` ("cuda" by default; "cpu" runs the plain twins).  Returns
-    opv_tpu's result dict as numpy, with only the valid frame slots kept
-    in frames/metrics/sync_q/t_idx.
+    runs the Costas-loop demodulator (rx/coherent.py, loop bandwidth pll_bw
+    Hz; it decodes nothing in the reference either) in place of the
+    tracking loop; dtype="float32" is ROADMAP item 11b.  Runs on `device`
+    ("cuda" by default; "cpu" runs the plain twins).  Returns opv_tpu's
+    result dict as numpy, with only the valid frame slots kept in
+    frames/metrics/sync_q/t_idx.
     """
-    if coherent:
-        raise NotImplementedError(
-            "coherent=True: the Costas-loop demodulator is ROADMAP item 11b, "
-            "not ported to opv_tpu_torch yet")
     require_float64(dtype)
     dev = torch.device(device)
     x = torch.as_tensor(np.asarray(samples) if not torch.is_tensor(samples)
                         else samples).to(dev, torch.complex128)
     n = x.shape[0]
-    # the demodulator's 64-sample window needs a buffer at least that long
-    buf = x if n >= 64 else torch.cat([x, x.new_zeros(64 - n)])
-    max_frames = max_symbols(buf.shape[0]) // CONFIG.frame_symbols + 2
     if init_offset is None:
         offset = estimate_cfo(x).reshape(1)
     else:
         offset = torch.full((1,), float(init_offset), dtype=torch.float64,
                             device=dev)
-    lstate = loop_state_init(offset, channels=1, device=dev)
     tstate = sync_tracker_init(channels=1, device=dev)
     hist = torch.zeros((1, CONFIG.encoded_bits), dtype=torch.float64,
                        device=dev)
-    out, lstate2, tstate2, _ = rx_block(
-        buf[None], torch.tensor([n], dtype=torch.int32, device=dev), lstate,
-        tstate, hist, max_frames, afc_alpha=afc_alpha)
+    if coherent:
+        soft, cstate = demodulate_coherent(
+            x, coherent_state_init(offset[0], device=dev), afc_alpha,
+            *pll_gains(pll_bw))
+        max_frames = max_symbols(n) // CONFIG.frame_symbols + 2
+        out, tstate2, _ = rx_block_from_soft(
+            soft[None], torch.ones((1, soft.shape[0]), dtype=torch.bool,
+                                   device=dev),
+            tstate, hist, max_frames)
+        out["samples_used"] = torch.tensor([n], dtype=torch.int32)
+        freq_offset = cstate.freq_offset
+    else:
+        # the demodulator's 64-sample window needs a buffer at least that
+        # long
+        buf = x if n >= 64 else torch.cat([x, x.new_zeros(64 - n)])
+        max_frames = max_symbols(buf.shape[0]) // CONFIG.frame_symbols + 2
+        lstate = loop_state_init(offset, channels=1, device=dev)
+        out, lstate2, tstate2, _ = rx_block(
+            buf[None], torch.tensor([n], dtype=torch.int32, device=dev),
+            lstate, tstate, hist, max_frames, afc_alpha=afc_alpha)
+        freq_offset = lstate2.freq_offset[0]
     out = {k: v[0].cpu().numpy() for k, v in out.items()}
-    out["freq_offset"] = lstate2.freq_offset[0].cpu().numpy()
+    out["freq_offset"] = freq_offset.cpu().numpy()
     out["est_offset"] = offset[0].cpu().numpy()
     out["tracker_state"] = tstate2.state[0].cpu().numpy()
     keep = out["frame_valid"]

@@ -59,7 +59,7 @@ from opv_tpu_torch.rx.locked import (INT8_SCALE, fold_est_np,
                                      rx_locked_reacquire,
                                      rx_locked_reacquire_strided,
                                      rx_locked_retime, rx_locked_steady)
-from opv_tpu_torch.stream.state import to_host
+from opv_tpu_torch.stream.state import to_device, to_host
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
@@ -285,15 +285,8 @@ class LockedStreamDemodulator:
     # -- device programs (plain torch on the engine's device) ------------ #
 
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
-        """x on the engine's device.  A host tensor goes to the card
-        through a pinned staging copy, non-blocking: a copy from pageable
-        memory would synchronize the stream and so wait for every block in
-        flight.  The caching host allocator keeps the staging memory until
-        its copy has run."""
-        if self.device.type != "cuda" or x.is_cuda:
-            return x.to(self.device)
-        staged = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        return staged.copy_(x).to(self.device, non_blocking=True)
+        """x on the engine's device (stream/state.py::to_device)."""
+        return to_device(x, self.device)
 
     def _put(self, arr) -> torch.Tensor:
         """A device copy of a host array (never a view of it)."""

@@ -70,6 +70,18 @@ def to_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """x on `device`.  A host tensor goes to the card through a pinned
+    staging copy, non-blocking: a copy from pageable memory would
+    synchronize the stream and so wait for every block in flight.  The
+    caching host allocator keeps the staging memory until its copy has
+    run."""
+    if device.type != "cuda" or x.is_cuda:
+        return x.to(device)
+    staged = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return staged.copy_(x).to(device, non_blocking=True)
+
+
 def save_state(path: str, tree: dict) -> None:
     leaves = [to_host(_get(tree, p)) for p in _paths(tree)]
     np.savez(_norm(path), n_leaves=np.int64(len(leaves)),

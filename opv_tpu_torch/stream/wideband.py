@@ -1,8 +1,11 @@
 """Wideband receiver: one digitizer stream in, decoded frames from every
 OPV channel out (counterpart of opv_tpu/stream/wideband.py).
 
-The analysis channelizer (rx/channelizer.py) feeds the locked streaming
-engine (stream/locked.py).  Feed blocks of wideband IQ at K x 2.168
+The analysis channelizer (rx/channelizer.py) feeds a multichannel engine:
+the locked streaming engine (stream/locked.py, engine="locked", the
+default) or the feed-forward dense receiver (stream/multichannel.py,
+engine="fast": dense correlation every block, no lock state, for bursty
+many-transmitter channels).  Feed blocks of wideband IQ at K x 2.168
 Msamples/s; get (channel, frame_bytes, metric, sync_quality,
 abs_channel_sample_pos) tuples.  The filter history is carried across
 feeds, so channelization is streaming-exact.
@@ -28,6 +31,7 @@ import torch
 from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.rx.channelizer import channelize
 from opv_tpu_torch.stream.locked import LockedStreamDemodulator
+from opv_tpu_torch.stream.multichannel import MultiChannelDemodulator
 
 
 class WidebandReceiver:
@@ -36,34 +40,39 @@ class WidebandReceiver:
                  quantum_out: int | None = None, pipeline: bool = False,
                  dtype: str = "auto", timing: bool = False, mesh=None,
                  hunt_stride: int = 1, device="cuda"):
-        """k channels of a K x 2.168 Msamples/s stream.  block_frames,
-        pipeline, dtype ("auto" is float32, as in the engine), timing and
-        hunt_stride go to the inner LockedStreamDemodulator; device= is
-        where it and the wideband window live ("cuda" by default, which
-        raises without a card; "cpu" runs the plain twins).
+        """k channels of a K x 2.168 Msamples/s stream.  block_frames goes
+        to the engine; pipeline, dtype ("auto" is float32, as in the
+        engine), timing and hunt_stride to the locked engine (the fast
+        engine has none of them and ignores all but pipeline, which it
+        refuses); device= is where the engine and the wideband window live
+        ("cuda" by default, which raises without a card; "cpu" runs the
+        plain twins).
 
         quantum_out: channel samples per channelizer call (default: the
         engine's block advance, so a steady block takes one call).  It
         must divide the advance for the steady path to repeat.
 
-        engine="fast" (MultiChannelDemodulator, ROADMAP queue 1 item 10)
-        and mesh= (item 12) are not ported and raise NotImplementedError."""
+        mesh= (ROADMAP queue 1, item 12) is not ported and raises
+        NotImplementedError."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (the channel-sharded wideband receiver) is not "
                 "ported yet (ROADMAP queue 1, item 12)")
-        if engine == "fast":
-            raise NotImplementedError(
-                "engine='fast' (MultiChannelDemodulator) is not ported yet "
-                "(ROADMAP queue 1, item 10)")
-        if engine != "locked":
+        if engine == "locked":
+            self.demod = LockedStreamDemodulator(channels=k,
+                                                 block_frames=block_frames,
+                                                 pipeline=pipeline,
+                                                 dtype=dtype, timing=timing,
+                                                 hunt_stride=hunt_stride,
+                                                 device=device)
+        elif engine == "fast":
+            if pipeline:
+                raise ValueError("pipeline=True requires engine='locked'")
+            self.demod = MultiChannelDemodulator(channels=k,
+                                                 block_frames=block_frames,
+                                                 device=device)
+        else:
             raise ValueError("engine must be 'locked' or 'fast'")
-        self.demod = LockedStreamDemodulator(channels=k,
-                                             block_frames=block_frames,
-                                             pipeline=pipeline, dtype=dtype,
-                                             timing=timing,
-                                             hunt_stride=hunt_stride,
-                                             device=device)
         self.device = self.demod.device
         self.k = k
         self.taps = taps_per_branch
@@ -143,7 +152,11 @@ class WidebandReceiver:
     def state_tree(self) -> dict:
         """{buf: the (window,) complex64 wideband window (a copy on the
         device), count, demod: the engine's state_tree()}.  Raises while a
-        pipelined block is in flight."""
+        pipelined block is in flight, and with engine='fast'."""
+        if not isinstance(self.demod, LockedStreamDemodulator):
+            raise RuntimeError(
+                "wideband checkpointing requires engine='locked' (the "
+                "'fast' engine carries no stream state worth saving)")
         return dict(buf=self._buf.clone(), count=np.int64(self._count),
                     demod=self.demod.state_tree())
 
@@ -162,9 +175,11 @@ class WidebandReceiver:
         self.demod.load_state_tree(tree["demod"])
 
     def stats(self) -> dict:
-        """The engine's per-block timing and lifecycle stats (timing=True):
-        device wait against host lifecycle per resolved block."""
-        return self.demod.stats()
+        """The locked engine's per-block timing and lifecycle stats
+        (timing=True): device wait against host lifecycle per resolved
+        block; {} with engine='fast'."""
+        fn = getattr(self.demod, "stats", None)
+        return fn() if fn is not None else {}
 
     @property
     def decoded(self) -> int:

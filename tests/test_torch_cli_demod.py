@@ -1,9 +1,9 @@
 """The port's opv-demod (opv_tpu_torch.cli.opv_demod) on the CPU: -s --fast
 round trips, the golden captures decoded exactly as the JAX package's
 pipelined engine decodes them when fed the CLI's 1 MiB reads, metrics,
-profile, --wideband; batch mode and -s (the tracking receiver) against
-the reference binary's golden frames and stderr lines; and the exit codes
-of the paths not ported yet."""
+profile, --wideband; batch mode (the tracking receiver, --fast the dense
+receiver, -c the coherent loop) and -s (the tracking receiver) against
+the reference binary's golden frames and stderr lines."""
 
 import json
 import pathlib
@@ -130,13 +130,52 @@ def test_help_and_empty_input():
     assert rc == 1 and out == b""
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--fast"], "item 10"),
-    (["-s", "--fast", "-c"], "item 11b"),
-])
-def test_unported_paths_exit_2(argv, item):
-    rc, out, err = run_main(opv_demod.main, argv + CPU, b"\0" * 4000)
-    assert rc == 2 and out == b"" and item in err and "not ported" in err
+@pytest.mark.parametrize("name,gold", [("bert3", "bert3.frames"),
+                                       ("raw3", "raw3.bin")])
+def test_batch_fast_gives_the_golden_frames(name, gold):
+    """Batch --fast: rx_fast over all of stdin, the reference's frames on
+    stdout in the order of their starts; the summary's state is "-"."""
+    rc, out, err = run_main(opv_demod.main, ["--fast", "-r"] + CPU,
+                            (GOLDEN / f"{name}.iq").read_bytes())
+    assert rc == 0 and out == (GOLDEN / gold).read_bytes()
+    assert "Loaded 264160 samples (0.122 sec)" in err
+    assert "Summary: 3 frames (" in err
+    assert "Final state: -, AFC:" in err
+
+
+def test_batch_fast_short_capture():
+    """Shorter than one frame and its sync word: nothing to decode, rc 1."""
+    iq = (GOLDEN / "bert3.iq").read_bytes()[: 4 * (86_720 + 959)]
+    rc, out, err = run_main(opv_demod.main, ["--fast"] + CPU, iq)
+    assert rc == 1 and out == b""
+    assert "Capture shorter than one frame; nothing to decode" in err
+
+
+def test_batch_coherent_matches_the_reference():
+    """-c on bert3: the reference binary's report (tests/test_coherent.py's
+    docstring), the experimental-mode note, no frame, rc 1."""
+    rc, out, err = run_main(opv_demod.main, ["-c", "-r"] + CPU,
+                            (GOLDEN / "bert3.iq").read_bytes())
+    assert rc == 1 and out == b""
+    for line in ("OPV MSK Demodulator with Costas Loop v1.0 (coherent)",
+                 "Note: coherent mode is experimental",
+                 "Estimated carrier offset: 1430.0 Hz",
+                 "Demodulated 6604 symbols, final AFC offset: 2000.0 Hz",
+                 "Summary: 0 frames (0 perfect, 0 errors)",
+                 "Final state: HUNTING, AFC: 2000.0 Hz"):
+        assert line in err, line
+
+
+def test_streaming_ignores_coherent():
+    """-s -c runs -s (the reference ignores -c when streaming), with the
+    experimental-mode note on stderr."""
+    iq = (GOLDEN / "bert3.iq").read_bytes()
+    rc, out, err = run_main(opv_demod.main, ["-s", "-r", "-q"] + CPU, iq)
+    rc_c, out_c, err_c = run_main(opv_demod.main, ["-s", "-c", "-r", "-q"]
+                                  + CPU, iq)
+    assert rc == rc_c == 0 and out == out_c == (GOLDEN / "bert3.frames").read_bytes()
+    assert err_c.startswith("Note: coherent mode is experimental")
+    assert err_c.split("\n", 1)[1] == err
 
 
 @pytest.mark.parametrize("name,gold", [("bert3", "bert3.frames"),

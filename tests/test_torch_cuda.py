@@ -15,10 +15,13 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from chip_smoke import (MODES_WEAK_GAIN, capture,  # noqa: E402
-                        drive_wideband, golden_frames, hold_stream_kernels,
+from chip_smoke import (COHERENT_RTOL, COHERENT_SYMBOLS,  # noqa: E402
+                        MODES_WEAK_GAIN, capture, dense_blocks, dense_host,
+                        drive_wideband, golden, golden_frames,
+                        hold_stream_kernels,
                         hold_sync, hold_sync_soft, hold_track,
-                        impaired_feed, k4_chunks, same_stream,
+                        impaired_feed, k4_chunks, same_dense,
+                        same_dense_tuples, same_stream,
                         same_tracking, same_wideband, serve_eager,
                         soft_stress, spy_kernels, stream_twin_checks,
                         SYNC_EDGE_CASES, sync_edge_case, sync_stress,
@@ -549,3 +552,78 @@ def test_streaming_on_card_matches_cpu(cuda_dev, name, gold):
     assert [t[0] for t in got] == golden_frames(gold)
     sd = StreamingDemodulator(device="cpu")
     same_tracking(got, sd.feed(x) + sd.flush(), f"{name} card vs cpu")
+
+
+def _cfo_mix():
+    """bert3 at 0, -400 and -900 Hz, (3, N) complex64 on the host."""
+    s = capture("bert3")
+    n = np.arange(len(s))
+    return torch.from_numpy(np.stack([
+        (s * np.exp(2j * np.pi * f * n / CONFIG.sample_rate)).astype(np.complex64)
+        for f in (0.0, -400.0, -900.0)]))
+
+
+@pytest.mark.parametrize("case", ["bert3", "cfo_mix"])
+def test_rx_fast_on_card_matches_cpu(cuda_dev, case):
+    """rx_fast on the card against the cpu twin given the cpu's CFO
+    (chip_smoke.same_dense: frames, valid and starts equal, a start one
+    sample away only at a plateau tie; q within DENSE_Q_TOL); one Viterbi
+    launch over every slot, and the reference's frames."""
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.rx import fast
+    x = (torch.from_numpy(capture("bert3").astype(np.complex64))[None]
+         if case == "bert3" else _cfo_mix())
+    want = dense_host(fast.rx_fast(x, max_frames=6))
+    foff = torch.from_numpy(want["freq_offset"]).to(cuda_dev)
+    kern = vit.CUDA_KERNELS[registry.get_viterbi_radix()]
+    n0 = kern.launches
+    got = dense_host(fast.rx_fast(x.to(cuda_dev), foff, max_frames=6))
+    assert kern.launches == n0 + 1
+    raw = fast.dense_sync(fast.dense_soft(x.to(cuda_dev), foff))[0]
+    same_dense(got, want, raw.cpu().numpy(), f"rx_fast {case}")
+    gold = np.frombuffer(golden("bert3.frames"), np.uint8).reshape(-1, 134)
+    for c in range(x.shape[0]):
+        np.testing.assert_array_equal(got["frames"][c][got["frame_valid"][c]],
+                                      gold)
+
+
+def test_multichannel_on_card_matches_cpu(cuda_dev):
+    """MultiChannelDemodulator on the card against the cpu given each
+    block's card CFO estimate: every block's slots held (same_dense), the
+    tuple streams equal up to plateau ties."""
+    from opv_tpu_torch.stream import MultiChannelDemodulator
+    x, frames = _signal(6, [0, 17, 40 + 23])
+    record = []
+    with dense_blocks(record=record):
+        mc = MultiChannelDemodulator(3, block_frames=2, device=cuda_dev)
+        got = mc.feed(x.to(cuda_dev)) + mc.flush()
+    with dense_blocks(replay=record, what="card vs cpu") as st:
+        mc = MultiChannelDemodulator(3, block_frames=2, device="cpu")
+        want = mc.feed(x) + mc.flush()
+    same_dense_tuples(got, want, "MultiChannelDemodulator card vs cpu")
+    assert st["blocks"] == len(record) > 1
+    assert sorted(r[1] for r in got) == sorted(
+        bytes(f) for f in frames.numpy() for _ in range(3))
+
+
+def test_coherent_rx_batch_on_card(cuda_dev):
+    """rx_batch(coherent=True) on the card: bert3's four reference
+    observables, one SoftSync and one Viterbi launch, and the soft stream
+    within COHERENT_RTOL of the cpu port's over its first COHERENT_SYMBOLS
+    symbols (the loop is chaotic beyond)."""
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.ops import sync_scan as sc
+    from opv_tpu_torch.rx.pipeline import rx_batch
+    s = capture("bert3")
+    kern = vit.CUDA_KERNELS[registry.get_viterbi_radix()]
+    n_v, n_s = kern.launches, sc.sync_scan_cuda.launches["SoftSync"]
+    got = rx_batch(s, coherent=True, device=cuda_dev)
+    assert (kern.launches, sc.sync_scan_cuda.launches["SoftSync"]) == \
+        (n_v + 1, n_s + 1)
+    assert float(got["est_offset"]) == 1430.0 and got["decoded"] == 0
+    assert float(got["freq_offset"]) == 2000.0
+    assert int(got["tracker_state"]) == 0
+    want = rx_batch(s, coherent=True, device="cpu")
+    k = COHERENT_SYMBOLS
+    err = np.abs(got["soft"][:k] - want["soft"][:k]).max()
+    assert err <= COHERENT_RTOL * np.abs(want["soft"][:k]).max()

@@ -1,6 +1,7 @@
 """The PyTorch port imports neither jax nor the JAX package, and importing
 it needs no GPU toolchain (kernels build at their first CUDA call, never at
-import)."""
+import).  Its import surface is the JAX package's: the top level's lazy
+names and the re-exports of core/, rx/ and tx/."""
 
 import subprocess
 import sys
@@ -11,6 +12,9 @@ import pytest
 MODULES = [
     "opv_tpu_torch",
     "opv_tpu_torch.config",
+    "opv_tpu_torch.core",
+    "opv_tpu_torch.rx",
+    "opv_tpu_torch.tx",
     "opv_tpu_torch.core.base40",
     "opv_tpu_torch.core.lfsr",
     "opv_tpu_torch.core.interleave",
@@ -27,6 +31,7 @@ MODULES = [
     "opv_tpu_torch.rx.channelizer",
     "opv_tpu_torch.rx.demod",
     "opv_tpu_torch.rx.pipeline",
+    "opv_tpu_torch.rx.coherent",
     "opv_tpu_torch.ops.build",
     "opv_tpu_torch.ops.viterbi",
     "opv_tpu_torch.ops.symbol_soft",
@@ -36,6 +41,7 @@ MODULES = [
     "opv_tpu_torch.ops.sync_scan",
     "opv_tpu_torch.stream",
     "opv_tpu_torch.stream.locked",
+    "opv_tpu_torch.stream.multichannel",
     "opv_tpu_torch.stream.state",
     "opv_tpu_torch.stream.wideband",
     "opv_tpu_torch.stream.chunked",
@@ -72,6 +78,49 @@ def test_port_imports_no_jax():
         print("ok")
     """)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+#: names of opv_tpu's subpackages that the port has no counterpart of
+LACKING = {"rx": {"viterbi_decode"}}
+
+
+def test_top_level_exports_jax_names_lazily():
+    """opv_tpu_torch exports opv_tpu's names; importing it loads no
+    receiver, and each lazy name is the port's object of that module."""
+    import importlib
+    import opv_tpu
+    import opv_tpu_torch
+    assert opv_tpu_torch.__all__ == opv_tpu.__all__
+    for name, mod in opv_tpu_torch._LAZY.items():
+        assert mod.replace("opv_tpu_torch", "opv_tpu") == opv_tpu._LAZY[name]
+        assert getattr(opv_tpu_torch, name) is getattr(
+            importlib.import_module(mod), name)
+    with pytest.raises(AttributeError):
+        opv_tpu_torch.no_such_name
+    r = _run("""
+        import sys
+        import opv_tpu_torch
+        assert opv_tpu_torch.CONFIG.samples_per_symbol == 40
+        loaded = sorted(m for m in sys.modules if m.startswith("opv_tpu_torch"))
+        assert loaded == ["opv_tpu_torch", "opv_tpu_torch.config"], loaded
+        assert "torch" not in sys.modules and "jax" not in sys.modules
+        print("ok")
+    """)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("sub", ["core", "rx", "tx"])
+def test_subpackages_reexport_jax_names(sub):
+    """core/, rx/ and tx/ re-export opv_tpu's names that the port has,
+    each an object of the port's module of that subpackage."""
+    import importlib
+    jax_names = importlib.import_module(f"opv_tpu.{sub}").__all__
+    port = importlib.import_module(f"opv_tpu_torch.{sub}")
+    lacking = LACKING.get(sub, set())
+    assert port.__all__ == [n for n in jax_names if n not in lacking]
+    for name in port.__all__:
+        obj = getattr(port, name)
+        assert obj.__module__.startswith(f"opv_tpu_torch.{sub}."), name
 
 
 def test_cpu_smoke_of_the_slice_without_jax():
@@ -117,6 +166,31 @@ def test_tracking_receiver_without_jax():
         sd = StreamingDemodulator(device="cpu")
         res = sd.feed(s) + sd.flush()
         assert [r[0] for r in res] == [bytes(f) for f in fr]
+        print("ok")
+    """)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+def test_dense_and_coherent_receivers_without_jax():
+    """rx_fast, MultiChannelDemodulator and rx_batch(coherent=True) run on
+    CPU tensors with jax and opv_tpu absent."""
+    r = _run("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["opv_tpu"] = None
+        import numpy as np, torch
+        import opv_tpu_torch as opv
+        from opv_tpu_torch.tx.modulator import iq_int16_to_complex, tx_flush_zeros
+        fr = opv.build_bert_frame("W5NYV", frame_num=np.arange(2))
+        iq, _ = opv.modulate_frames(opv.encode_frame(torch.from_numpy(fr)))
+        s = iq_int16_to_complex(torch.cat([iq, tx_flush_zeros()]))
+        out = opv.rx_fast(s[None], max_frames=4)
+        assert int(out["n_decoded"]) == 2
+        mc = opv.MultiChannelDemodulator(1, block_frames=1, device="cpu")
+        res = mc.feed(s[None]) + mc.flush()
+        assert [r[1] for r in res] == [bytes(f) for f in fr]
+        out = opv.rx_batch(s.to(torch.complex128), coherent=True, device="cpu")
+        assert out["decoded"] == 0 and int(out["n_symbols"]) == len(s) // 40
         print("ok")
     """)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr

@@ -61,6 +61,4 @@ def test_rx_batch_on_a_tensor_and_short_input():
 
 def test_unported_options_name_item_11b():
     with pytest.raises(NotImplementedError, match="11b"):
-        rx_batch(np.zeros(1000, np.complex128), coherent=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="11b"):
         rx_batch(np.zeros(1000, np.complex128), dtype="float32", device="cpu")

@@ -235,8 +235,6 @@ def test_feed_casts_complex128_and_tensors():
 
 
 def test_unported_modes_raise_with_their_items():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        WidebandT(4, engine="fast", device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         WidebandT(4, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
