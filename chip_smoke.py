@@ -169,7 +169,37 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               the card against bert3's 0.122 s of air, its soft values
               against the cpu's; rx_fast's first Viterbi call and -c's
               SoftSync call held against the twins after the count
- 13. the kernels JSON line (launches: the main path's, for phase_track the
+ 13. precision the float32 tracking receiver (JAX's dtype="float32"): (a)
+              track_symbols[float32] and both sync_scan[float32]
+              instantiations against their twins at C = 1 and 64 on one
+              chunk of the golden mix as complex64 (T1: n_sym,
+              samples_used, sym_valid equal, soft and state within
+              TRACK_F32_RTOL; T2 bit for bit), each timed in turns with
+              its float64 instantiation on the same chunk; T1[float32] on
+              TRACK_EDGE_CASES and TRACK_F32_EDGE_CASES (an odd cap, odd
+              rows off 16 bytes), T2[float32] on the stress inputs (norms
+              on float32's rounded 0.7) and SYNC_EDGE_CASES; the two sync
+              routes at float32; (b) rx_batch(dtype="float32") and
+              StreamingDemodulator(dtype="float32") on the card over the
+              nine golden checks (and raw3): the streaming runs the
+              reference's frames, rx_batch PRECISION_BATCH_GOLDENS', and
+              both equal to the host's float32 run given the card's CFO
+              estimate; (c) tracking-64 at float32:
+              MultiChannelTrackingDemodulator(64, dtype="float32") on phase
+              11's feed, each channel equal to its single-channel run at
+              its CFO estimate, channels 0-6 the reference's frames; host
+              ms per chunk, Msamples/s, multiple of real time, device ms by
+              kernel (torch.profiler), peak memory, beside phase 11's
+              float64 numbers of this run; (d) TestDivergentClocks' feed
+              (300 ppm apart) through MultiChannelTrackingDemodulator(2) on
+              the card at float64 and float32, equal to the host's given
+              the card's CFO estimates; (e) smoke-64x20 as complex128
+              (the JAX package's float64 path) through rx_locked,
+              rx_locked_steady and rx_fast: every frame byte-exact, peak
+              memory; then symbol_soft[float64] held against its twin on
+              the steady block's operands (SOFT_F64_RTOL), its time, bytes
+              bound and torch.bmm's float64 time
+ 14. the kernels JSON line (launches: the main path's, for phase_track the
      cli phase's opv_mod runs, for track_symbols and sync_scan[SoftSync]
      the tracking phase's (b)-(d), for sync_scan[GivenSync] its route's
      in (a); launches_stream: the stream phase's two runs;
@@ -177,7 +207,11 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      launches_cli: the cli phase's in-process runs; launches_wideband: the
      wideband phase's runs (b)-(e); launches_tracking: the tracking
      phase's (b)-(d); launches_dense: the dense phase's runs (a)-(d)
-     without its stage timings), the card line, then the result line
+     without its stage timings; launches_precision: the precision phase's
+     (b)-(e); the float32 instantiations of track_symbols and sync_scan
+     and the float64 one of symbol_soft their own rows, launches from
+     phase 13 (b)-(e), GivenSync's from its float32 route), the card line,
+     then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 There is no CPU fallback: without a CUDA device it exits non-zero and
@@ -205,6 +239,9 @@ FRAMES = 20
 #: soft stage: |kernel - twin| <= SOFT_RTOL * max|twin| (float32 sums of 80
 #: products taken in another order, and fused multiply-adds in the combine)
 SOFT_RTOL = 1e-5
+#: the same for float64 rows (the complex128 path, phase 13 (e)): float64
+#: sums of 80 products in another order
+SOFT_F64_RTOL = 1e-12
 KERNEL_REPS = 20
 #: published H100 SXM peaks (NVIDIA's H100 datasheet): HBM bytes/s, and
 #: operations/s for float32 outside the tensor cores and for int8
@@ -260,8 +297,6 @@ CLI_ECHO_WARM = 10
 CLI_ECHO_FRAMES = 40
 CLI_PACING_S = 0.040
 CLI_TRACK_REPS = 5
-#: launches a sync_scan time averages (device_ms)
-SYNC_REPS = 50
 CLI_START_S = 120
 CLI_BIG_READ = 16
 REAL_TIME_MSPS = 2.168        # one channel's sample rate, Msamples/s
@@ -309,6 +344,18 @@ TRACK_LEAD_STEP = 487
 #: against the twin: 2.4e-15 of max|soft|); n_sym, samples_used and
 #: sym_valid must be equal
 TRACK_RTOL = 1e-9
+#: the same at float32 (phase 13): float32 sums in another order and
+#: sincosf/atan2f an ulp or two from the host's; the host twin against the
+#: JAX package's float32 scan stays within 1.5e-6 of max|soft| over a whole
+#: chunk, and mu within 4e-6 (tests/test_torch_tracking_f32.py)
+TRACK_F32_RTOL = 1e-4
+#: ... and the float32 state: each field within this x max(1, max|twin|),
+#: prev_c1 and prev_c2 as complex values (their magnitude the scale).  The
+#: LO phases are float32 accumulators, rounded at ulp(pi) = 2.4e-7 each
+#: symbol and advanced at AFC offsets ~1e-4 Hz apart, so they walk apart
+#: ~5e-5 rad over a chunk (the card against the twin, H100) and further
+#: over a whole capture; prev_c carries that rotation at |c| ~ 6e5
+TRACK_F32_STATE_RTOL = 1e-3
 #: a frame's sync quality, card against cpu and one channel of (c) against
 #: its single-channel run: within this (a ratio of sums of the soft values
 #: above); bytes, metric and symbol index must be equal
@@ -316,9 +363,26 @@ TRACK_Q_TOL = 1e-9
 TRACK_REPS = 5
 #: launches a sync_scan time averages (device_ms)
 SYNC_REPS = 50
+#: phase 13 (precision): the float32 receivers on the card against the host
+#: given the same CFO, sync quality within this (float32 ratios of sums the
+#: two devices round apart, ~1e-6); frames, metrics, indices equal
+PRECISION_Q_TOL = 1e-5
+#: the golden checks whose captures the batch mode (rx_batch) reads as the
+#: reference did: awgn7, awgn8 and drift are streaming captures whose
+#: batch frames differ from theirs in both packages, at float64 too
+PRECISION_BATCH_GOLDENS = (("bert3", "bert3.frames"),
+                           ("cfo500", "cfo500.frames"),
+                           ("awgn10", "awgn10.frames"),
+                           ("dropout", "dropout.frames"),
+                           ("cfo500", "cfo500_a01.frames"),
+                           ("cfo500", "cfo500_o500.frames"),
+                           ("raw3", "raw3.bin"))
 #: the inputs of track_edge_case: the edges of the kernel's sample ring
 TRACK_EDGE_CASES = ("whole capture", "cap 64", "cap 100", "clamp 1",
                     "clamp 2", "C=133", "storage offset")
+#: and the float32 loop's own (complex64 rows of odd length and off 16
+#: bytes: the wrapper pads them for the kernel's 16-byte bulk copies)
+TRACK_F32_EDGE_CASES = ("odd cap", "odd rows")
 #: the nine golden checks of tests/test_streaming.py: capture, the
 #: reference's frames, StreamingDemodulator options
 TRACK_GOLDENS = (("bert3", "bert3.frames", {}),
@@ -596,11 +660,11 @@ def synthesize(dev):
     return x, frames, delays
 
 
-def hold_soft(ops, nsym: int, what: str):
+def hold_soft(ops, nsym: int, what: str, rtol: float = SOFT_RTOL):
     """The soft-stage kernel against its twin on `ops` (rows, kern, resc,
-    phi): the soft values within SOFT_RTOL of max|twin|, and the raw
-    correlation too (exact for int8 rows).  Returns (max |kernel - twin|,
-    max|twin|, a note on the correlation)."""
+    phi): the soft values within rtol (SOFT_RTOL by default) of max|twin|,
+    and the raw correlation too (exact for int8 rows).  Returns (max
+    |kernel - twin|, max|twin|, a note on the correlation)."""
     import torch
     from opv_tpu_torch.ops import symbol_soft as ss
     got = ss.symbol_soft_cuda(*ops, nsym)
@@ -610,9 +674,9 @@ def hold_soft(ops, nsym: int, what: str):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale_ref = float(want.abs().max())
-    if not err <= SOFT_RTOL * scale_ref:
+    if not err <= rtol * scale_ref:
         raise AssertionError(f"{what}: max |kernel - twin| {err:.4g} "
-                             f"> {SOFT_RTOL} x {scale_ref:.4g}")
+                             f"> {rtol} x {scale_ref:.4g}")
     if ops[0].dtype == torch.int8:
         if not torch.equal(raw_k, raw_t):
             raise AssertionError(f"{what}: s32 dot differs from the twin's "
@@ -620,9 +684,9 @@ def hold_soft(ops, nsym: int, what: str):
         return err, scale_ref, "s32 dot exact"
     raw_err = float((raw_k - raw_t).abs().max())
     raw_ref = float(raw_t.abs().max())
-    if not raw_err <= SOFT_RTOL * raw_ref:
+    if not raw_err <= rtol * raw_ref:
         raise AssertionError(f"{what} correlation: {raw_err:.4g} > "
-                             f"{SOFT_RTOL} x {raw_ref:.4g}")
+                             f"{rtol} x {raw_ref:.4g}")
     return err, scale_ref, f"correlation max err {raw_err:.4g} of {raw_ref:.4g}"
 
 
@@ -2251,28 +2315,35 @@ def golden_frames(name: str) -> list:
     return [data[i:i + 134] for i in range(0, len(data), 134)]
 
 
-def track_inputs(channels: int, dev):
+def track_inputs(channels: int, dev, real=None):
     """The inputs of one chunk of a StreamingDemodulator's first call, per
     channel: (samples (C, 86,720) complex128, n_valid (C,) int32, state
-    (C, 9) float64) on dev.  Channel c holds the first chunk of capture
-    c % 7 of TRACK_CAPTURES, its loop state fresh at the capture's CFO
-    estimate (the single-channel estimate, as the first chunk runs it)."""
+    (C, 9) float64) on dev, or complex64 and float32 with real=float32.
+    Channel c holds the first chunk of capture c % 7 of TRACK_CAPTURES,
+    its loop state fresh at the capture's CFO estimate (the single-channel
+    estimate, as the first chunk runs it)."""
     import torch
     from opv_tpu_torch.rx.cfo import estimate_cfo
-    from opv_tpu_torch.rx.demod import loop_state_init, pack_state
-    first = [torch.from_numpy(capture(n)[:SPF]).to(dev) for n in TRACK_CAPTURES]
+    from opv_tpu_torch.rx.demod import (complex_dtype, loop_state_init,
+                                        pack_state)
+    real = real or torch.float64
+    first = [torch.from_numpy(capture(n)[:SPF]).to(dev, complex_dtype(real))
+             for n in TRACK_CAPTURES]
     offs = [estimate_cfo(x) for x in first]
     pick = [c % len(first) for c in range(channels)]
     x = torch.stack([first[i] for i in pick])
     state = pack_state(loop_state_init(torch.stack([offs[i] for i in pick]),
-                                       channels=channels, device=dev))
+                                       channels=channels, device=dev,
+                                       dtype=real))
     nv = torch.full((channels,), SPF, dtype=torch.int32, device=dev)
     return x, nv, state
 
 
-def track_edge_case(name: str, dev):
+def track_edge_case(name: str, dev, real=None):
     """track_symbols inputs (samples, n_valid, state) on dev at an edge of
-    the kernel's sample ring (TRACK_EDGE_CASES), from its CFO estimate:
+    the kernel's sample ring (TRACK_EDGE_CASES, and at real=float32 also
+    TRACK_F32_EDGE_CASES), complex128/float64 or complex64/float32 (real),
+    from its CFO estimate:
       whole capture   one launch over all 697,618 samples of drift, as
                       rx_batch runs it (1,363 tiles of 512)
       cap 64, 100     two channels of bert3 with n_valid (0, 49) and
@@ -2283,28 +2354,50 @@ def track_edge_case(name: str, dev):
                       it by one and by two samples)
       C=133           track_inputs at 133 channels, more blocks than SMs
       storage offset  track_inputs at 7 channels as a view 5 samples into
-                      its storage"""
+                      its storage (complex64: 40 bytes, off 16)
+      odd cap         (float32) bert3 and cfo500 cut to 86,719 samples, all
+                      of them valid: an odd row (the kernel's bulk copies
+                      move whole 16 bytes, so the wrapper pads the rows)
+      odd rows        (float32) 3 channels of 10,001 samples of bert3,
+                      cfo500 and awgn8, n_valid 10,001, 9,998 and 1,001:
+                      rows 1 and 2 start off 16 bytes and the last tile
+                      of each row is odd"""
     import torch
     from opv_tpu_torch.config import CONFIG
     from opv_tpu_torch.ops import track_symbols as ts
     from opv_tpu_torch.rx.cfo import estimate_cfo
-    from opv_tpu_torch.rx.demod import loop_state_init, pack_state
+    from opv_tpu_torch.rx.demod import (complex_dtype, loop_state_init,
+                                        pack_state)
     i32 = dict(dtype=torch.int32, device=dev)
+    real = real or torch.float64
+    cplx = complex_dtype(real)
 
     def fresh(x, c=1):
         return pack_state(loop_state_init(estimate_cfo(x).reshape(1).expand(c),
-                                          channels=c, device=dev))
+                                          channels=c, device=dev, dtype=real))
+
+    def cut(names, n):
+        return torch.stack([torch.from_numpy(capture(k)[:n]).to(dev, cplx)
+                            for k in names])
 
     if name in ("C=133", "storage offset"):
-        x, nv, state = track_inputs(133 if name == "C=133" else 7, dev)
+        x, nv, state = track_inputs(133 if name == "C=133" else 7, dev, real)
         if name == "storage offset":
             buf = torch.zeros(x.numel() + 5, dtype=x.dtype, device=dev)
             x = buf[5:].view(x.shape).copy_(x)
         return x, nv, state
     if name == "whole capture":
-        x = torch.from_numpy(capture("drift")).to(dev)
+        x = torch.from_numpy(capture("drift")).to(dev, cplx)
         return x[None], torch.tensor([x.shape[0]], **i32), fresh(x)
-    first = torch.from_numpy(capture("bert3")[:SPF]).to(dev)
+    if name == "odd cap":
+        x = cut(("bert3", "cfo500"), SPF - 1)
+        return x, torch.full((2,), SPF - 1, **i32), torch.cat(
+            [fresh(x[0]), fresh(x[1])])
+    if name == "odd rows":
+        x = cut(("bert3", "cfo500", "awgn8"), 10_001)
+        return x, torch.tensor([10_001, 9_998, 1_001], **i32), torch.cat(
+            [fresh(r) for r in x])
+    first = torch.from_numpy(capture("bert3")[:SPF]).to(dev, cplx)
     if name.startswith("cap"):
         cap = int(name.split()[1])
         nv = (0, 49) if cap == 64 else (49, 100)
@@ -2323,9 +2416,10 @@ def track_edge_case(name: str, dev):
 def hold_track(x, nv, state, what: str, run=None):
     """track_symbols on the card (`run`, the package's kernel by default)
     against its twin (on the host) on the same inputs: n_sym, samples_used
-    and sym_valid equal, soft and the state within TRACK_RTOL.  Returns
-    (the kernel's outputs, the largest soft difference, the twin's host
-    ms)."""
+    and sym_valid equal, soft and the state within TRACK_RTOL (complex128)
+    or, for complex64, soft within TRACK_F32_RTOL and the state within
+    TRACK_F32_STATE_RTOL.  Returns (the kernel's outputs, the largest soft
+    difference, the twin's host ms)."""
     import torch
     from opv_tpu_torch.config import CONFIG
     from opv_tpu_torch.ops import track_symbols as ts
@@ -2337,20 +2431,31 @@ def hold_track(x, nv, state, what: str, run=None):
                                       CONFIG.afc_alpha, maxs)
     twin_ms = (time.perf_counter() - t0) * 1e3
     soft, valid, st, used = (t.cpu() for t in got)
+    rtol = TRACK_RTOL if x.dtype == torch.complex128 else TRACK_F32_RTOL
+    if soft.dtype != want[0].dtype or st.dtype != want[2].dtype:
+        raise AssertionError(f"[tracking] {what}: track_symbols gave "
+                             f"{soft.dtype}/{st.dtype} for {x.dtype}")
     if not (torch.equal(valid, want[1]) and torch.equal(used, want[3])):
         raise AssertionError(
             f"[tracking] {what}: track_symbols n_sym {valid.sum(1).tolist()} "
             f"samples_used {used.tolist()} != twin "
             f"{want[1].sum(1).tolist()} {want[3].tolist()}")
     err = float((soft - want[0]).abs().max())
-    if err > TRACK_RTOL * max(1.0, float(want[0].abs().max())):
+    if err > rtol * max(1.0, float(want[0].abs().max())):
         raise AssertionError(f"[tracking] {what}: track_symbols soft differs "
                              f"from the twin by {err:.3e}")
-    d = (st - want[2]).abs()
-    d[:, 1:3] = torch.remainder(st[:, 1:3] - want[2][:, 1:3] + np.pi,
+    st, st_want = st.double(), want[2].double()
+    d = (st - st_want).abs()
+    d[:, 1:3] = torch.remainder(st[:, 1:3] - st_want[:, 1:3] + np.pi,
                                 2 * np.pi).sub(np.pi).abs()
-    scale = want[2].abs().amax(0).clamp(min=1.0)
-    if bool((d > TRACK_RTOL * scale).any()):
+    scale = st_want.abs().amax(0).clamp(min=1.0)
+    if x.dtype == torch.complex64:
+        rtol = TRACK_F32_STATE_RTOL
+        for j in (5, 7):       # prev_c1, prev_c2: complex differences
+            mag = torch.hypot(st_want[:, j], st_want[:, j + 1]).max()
+            d[:, j:j + 2] = torch.hypot(d[:, j], d[:, j + 1])[:, None]
+            scale[j:j + 2] = mag.clamp(min=1.0)
+    if bool((d > rtol * scale).any()):
         raise AssertionError(f"[tracking] {what}: track_symbols state differs "
                              f"from the twin by {d.amax(0).tolist()}")
     return got, err, twin_ms
@@ -2362,12 +2467,12 @@ SYNC_OUTPUTS = ("ints", "sync_q", "ready", "q", "events", "ev_misses",
 
 def same_sync(got, want, what: str, names=SYNC_OUTPUTS) -> None:
     """Every output of the sync_scan kernel (named `names`) equal to its
-    twin's, bit for bit (the float64 ones compared as bytes)."""
+    twin's, bit for bit (the float ones compared as bytes)."""
     import torch
 
     def bits(t):
         t = t.cpu()
-        return t.view(torch.uint8) if t.dtype == torch.float64 else t
+        return t.view(torch.uint8) if t.is_floating_point() else t
     bad = [n for n, a, b in zip(names, got, want)
            if a.shape != b.shape or not torch.equal(bits(a), bits(b))]
     if bad or len(got) != len(want):
@@ -2566,34 +2671,41 @@ def sync_edge_case(name: str, dev):
     raise ValueError(f"no sync edge case {name!r}")
 
 
-def track_bound(nsym: int, n_samples: int, channels: int, maxs: int):
+def track_bound(nsym: int, n_samples: int, channels: int, maxs: int,
+                real_bytes: int = 8):
     """(bound ms, what bounds it) of track_symbols: the n_valid samples
-    read once (16 B), the state in and out, soft and sym_valid written
-    (9 B a slot), against TRACK_OPS_PER_SYMBOL float64 operations for each
-    symbol this run's data produced."""
-    nbytes = n_samples * 16 + channels * (2 * 9 * 8 + 4 + 4) + \
-        channels * maxs * 9
-    return bound(nbytes, nsym * TRACK_OPS_PER_SYMBOL, PEAK_OPS_PER_S["f64"])
+    read once (2 reals), the state in and out, soft and sym_valid written
+    (a real and a byte a slot), against TRACK_OPS_PER_SYMBOL operations
+    for each symbol this run's data produced, at the float64 (real_bytes
+    8) or float32 (4) peak."""
+    r = real_bytes
+    nbytes = n_samples * 2 * r + channels * (2 * 9 * r + 4 + 4) + \
+        channels * maxs * (r + 1)
+    return bound(nbytes, nsym * TRACK_OPS_PER_SYMBOL,
+                 PEAK_OPS_PER_S["f64" if r == 8 else "f32"])
 
 
 def sync_bound(channels: int, steps: int, int_ops_per_s: float,
-               soft: bool = False):
+               soft: bool = False, real_bytes: int = 8):
     """(bound ms, what bounds it) of sync_scan.  GivenSync: raw, norm and
-    valid read once (17 B a symbol), ready, q, events, misses and frames
-    written (21 B), SYNC_OPS_PER_SYMBOL int32 operations a symbol.
-    SoftSync: soft_ext (23 + S a row) and valid read once, the same
-    outputs and raw and norm written (16 B), and SYNC_F64_OPS_PER_SYMBOL
-    float64 operations a symbol beside the int32 ones (separate pipes: the
+    valid read once (2 reals and a byte a symbol), ready, q, events, misses
+    and frames written (a byte, a real and 12 B), SYNC_OPS_PER_SYMBOL int32
+    operations a symbol.  SoftSync: soft_ext (23 + S reals a row) and
+    valid read once, the same outputs and raw and norm written (2 reals),
+    and SYNC_F64_OPS_PER_SYMBOL float operations a symbol (float64 or, at
+    real_bytes 4, float32) beside the int32 ones (separate pipes: the
     larger time bounds)."""
-    state = channels * 2 * (6 * 4 + 8)
+    r = real_bytes
+    state = channels * 2 * (6 * 4 + r)
+    out = 1 + r + 12
     if not soft:
-        return bound(channels * steps * 38 + state,
+        return bound(channels * steps * (2 * r + 1 + out) + state,
                      channels * steps * SYNC_OPS_PER_SYMBOL, int_ops_per_s)
-    nbytes = channels * ((steps + 23) * 8 + steps * (1 + 21 + 16)) + state
-    f64 = bound(nbytes, channels * steps * SYNC_F64_OPS_PER_SYMBOL,
-                PEAK_OPS_PER_S["f64"])
+    nbytes = channels * ((steps + 23) * r + steps * (1 + out + 2 * r)) + state
+    fl = bound(nbytes, channels * steps * SYNC_F64_OPS_PER_SYMBOL,
+               PEAK_OPS_PER_S["f64" if r == 8 else "f32"])
     i32 = bound(nbytes, channels * steps * SYNC_OPS_PER_SYMBOL, int_ops_per_s)
-    return max(f64, i32)
+    return max(fl, i32)
 
 
 def tracking_kernels(dev, card, int_ops_per_s: float):
@@ -2616,6 +2728,8 @@ def tracking_kernels(dev, card, int_ops_per_s: float):
         if "Compiling entry function" in line:
             entry = next((k for k in ("track_symbols", "GivenSync", "SoftSync")
                           if k in line), None)
+            if entry and "IfE" in line:    # the float32 instantiation
+                entry += "[float32]"
         elif entry and ("registers" in line or "spill" in line):
             log(f"[tracking] (a) {entry} ptxas: {line.strip()}")
 
@@ -2719,12 +2833,12 @@ def tracking_kernels(dev, card, int_ops_per_s: float):
     return rows
 
 
-def sync_routes(dev, card):
+def sync_routes(dev, card, real=None):
     """The sync stage's two public routes on T1's soft for one chunk of
     the golden mix at TRACK_CHANNELS, from a zero history (rx/sync.py:
     sync_correlate then sync_scan, the GivenSync path; sync_correlate_scan,
-    the SoftSync one): every output equal.  Returns the launches of the
-    run (counts reset just before it)."""
+    the SoftSync one), in float64 or (real) float32: every output equal.
+    Returns the launches of the run (counts reset just before it)."""
     import torch
     from opv_tpu_torch.config import CONFIG
     from opv_tpu_torch.ops import registry
@@ -2732,14 +2846,15 @@ def sync_routes(dev, card):
     from opv_tpu_torch.rx.sync import (sync_correlate, sync_correlate_scan,
                                        sync_scan, sync_tracker_init)
     eb = CONFIG.encoded_bits
-    x, nv, state = track_inputs(TRACK_CHANNELS, dev)
+    real = real or torch.float64
+    x, nv, state = track_inputs(TRACK_CHANNELS, dev, real)
     torch.cuda.synchronize()
     registry.reset_launch_counts()
     soft, valid, _, _ = registry.track_symbols(x, nv, state, CONFIG.afc_alpha,
                                                max_symbols(SPF))
-    ext = torch.cat([torch.zeros((TRACK_CHANNELS, eb), dtype=torch.float64,
+    ext = torch.cat([torch.zeros((TRACK_CHANNELS, eb), dtype=real,
                                  device=dev), soft], 1)[:, eb - 23:]
-    st = sync_tracker_init(TRACK_CHANNELS, device=dev)
+    st = sync_tracker_init(TRACK_CHANNELS, device=dev, dtype=real)
     raw, norm = sync_correlate(ext)
     two = sync_scan(st, raw, norm, valid)
     one = sync_correlate_scan(st, ext, valid)
@@ -2748,9 +2863,10 @@ def sync_routes(dev, card):
     same_sync((*one[0], *one[1:]), (*two[0], raw, norm, *two[1:]),
               "(a) sync_correlate_scan against sync_correlate + sync_scan",
               names=(*st._fields, *SYNC_OUTPUTS[7:], *SYNC_OUTPUTS[2:7]))
-    log(f"[tracking] (a) rx.sync.sync_correlate + sync_scan (GivenSync) and "
+    log(f"[{'tracking' if real == torch.float64 else 'precision'}] (a) "
+        f"rx.sync.sync_correlate + sync_scan (GivenSync) and "
         f"sync_correlate_scan (SoftSync) equal on the card on "
-        f"{TRACK_CHANNELS} x {valid.shape[1]} symbols "
+        f"{TRACK_CHANNELS} x {valid.shape[1]} symbols in {real} "
         f"({int(one[3].sum())} frames ready); launches {launches} ({card})")
     return launches
 
@@ -2767,8 +2883,8 @@ def cpu_streaming(job):
     return sd.feed(x) + sd.flush()
 
 
-def same_tracking(got, want, what: str) -> float:
-    """Tuples (bytes, metric, q, symbol index) equal, q within TRACK_Q_TOL;
+def same_tracking(got, want, what: str, q_tol: float = TRACK_Q_TOL) -> float:
+    """Tuples (bytes, metric, q, symbol index) equal, q within q_tol;
     returns the largest q difference."""
     if [(t[0], t[1], t[3]) for t in got] != [(t[0], t[1], t[3]) for t in want]:
         raise AssertionError(
@@ -2776,7 +2892,7 @@ def same_tracking(got, want, what: str) -> float:
             f"(metric, index) {[(t[1], t[3]) for t in got][:12]} against "
             f"{[(t[1], t[3]) for t in want][:12]}")
     dq = max((abs(a[2] - b[2]) for a, b in zip(got, want)), default=0.0)
-    if dq > TRACK_Q_TOL:
+    if dq > q_tol:
         raise AssertionError(f"[tracking] {what}: sync quality differs by "
                              f"{dq:.3e}")
     return dq
@@ -2847,12 +2963,14 @@ def tracking_feed(dev):
     return x
 
 
-def tracking_64(dev, card):
-    """(c) MultiChannelTrackingDemodulator(channels=64) over the golden mix
-    fed a chunk of air at a time: every channel's tuples equal a
+def tracking_64(dev, card, dtype: str = "float64"):
+    """(c) MultiChannelTrackingDemodulator(channels=64, dtype) over the
+    golden mix fed a chunk of air at a time: every channel's tuples equal a
     single-channel StreamingDemodulator on the card on that channel's
-    samples, channels 0-6 the reference's frames; host ms per chunk, the
-    kernels' device ms per chunk (torch.profiler), peak memory."""
+    samples (at float32 given the channel's CFO estimate: the batched and
+    the single complex64 grid may round the flat curve's argmax apart),
+    channels 0-6 the reference's frames; host ms per chunk, the kernels'
+    device ms per chunk (torch.profiler), peak memory."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2863,7 +2981,8 @@ def tracking_64(dev, card):
     n = x.shape[1]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mc = MultiChannelTrackingDemodulator(TRACK_CHANNELS, device=dev)
+    mc = MultiChannelTrackingDemodulator(TRACK_CHANNELS, device=dev,
+                                         dtype=dtype)
     res, times = [], []
     before = registry.launch_counts()
     prof_at = (3, 6)            # the profiled chunks, not in the times
@@ -2899,11 +3018,14 @@ def tracking_64(dev, card):
     # the JAX contract: each channel equals its own single-channel run
     t0 = time.perf_counter()
     dq = 0.0
+    tag = "tracking" if dtype == "float64" else "precision"
     for c in range(TRACK_CHANNELS):
-        sd = StreamingDemodulator(device=dev)
+        pin = {} if dtype == "float64" else \
+            {"init_offset": float(mc.est_offset[c])}
+        sd = StreamingDemodulator(device=dev, dtype=dtype, **pin)
         single = sd.feed(x[c]) + sd.flush()
         mine = [t[1:] for t in res if t[0] == c]
-        dq = max(dq, same_tracking(mine, single, f"(c) channel {c}"))
+        dq = max(dq, same_tracking(mine, single, f"(c) {dtype} channel {c}"))
         if c < len(TRACK_CAPTURES):
             # the reference's frames; past them only frames that end after
             # the capture does (the flywheel completes one from the zeros)
@@ -2912,11 +3034,11 @@ def tracking_64(dev, card):
             if [t[0] for t in mine[:len(gold)]] != gold \
                     or any(t[3] < end for t in mine[len(gold):]):
                 raise AssertionError(
-                    f"[tracking] (c) channel {c}: not "
+                    f"[{tag}] (c) {dtype} channel {c}: not "
                     f"{TRACK_GOLDENS[c][1]}, then frames past the capture's "
                     f"end ({[(t[1], t[3]) for t in mine]})")
     singles_s = time.perf_counter() - t0
-    log(f"[tracking] (c) tracking-64: {len(res)} frames over "
+    log(f"[{tag}] (c) tracking-64 at {dtype}: {len(res)} frames over "
         f"{TRACK_CHANNELS} channels x {n} samples ({len(times)} feeds of a "
         f"chunk, then the tail and flush); every channel equal to its own StreamingDemodulator on the "
         f"card (largest sync-quality difference {dq:.3e}; the single runs "
@@ -2931,8 +3053,8 @@ def tracking_64(dev, card):
         f"({', '.join(f'{k} {v:.1f}' for k, v in dev_n.most_common())}); "
         f"the port's kernels' launches per chunk {per_chunk}; "
         f"peak memory {peak / 2**30:.2f} GiB ({card})")
-    return dict(frames=len(res), ms_per_chunk=ms_chunk, chunk_ms=times,
-                msps=msps,
+    return dict(dtype=dtype, frames=len(res), ms_per_chunk=ms_chunk,
+                chunk_ms=times, msps=msps,
                 x_real_time=msps / (TRACK_CHANNELS * REAL_TIME_MSPS),
                 device_ms_per_chunk=dict(dev_ms),
                 device_kernels_per_chunk=dict(dev_n),
@@ -3513,6 +3635,442 @@ def phase_dense(dev, card):
     return dict(launches=launches, a=a, b=b, c=c, d=d, held=held)
 
 
+def precision_kernels(dev, card, int_ops_per_s: float):
+    """(a) track_symbols[float32] and both sync_scan[float32]
+    instantiations against their twins at C = 1 and C = TRACK_CHANNELS on
+    one chunk of the golden mix (complex64), each timed in turns with its
+    float64 instantiation on the same chunk (complex128); track_symbols
+    [float32] on TRACK_EDGE_CASES and TRACK_F32_EDGE_CASES, sync_scan
+    [float32] on the stress inputs and SYNC_EDGE_CASES (as float32, so
+    norms sit exactly on the rounded thresholds)."""
+    import torch
+    from opv_tpu_torch.config import CONFIG
+    from opv_tpu_torch.ops import sync_scan as sc
+    from opv_tpu_torch.ops import track_symbols as ts
+    from opv_tpu_torch.rx.demod import max_symbols
+    from opv_tpu_torch.rx.sync import sync_correlate
+    eb = CONFIG.encoded_bits
+    maxs = max_symbols(SPF)
+    f32 = torch.float32
+    rows = {}
+    for c in (1, TRACK_CHANNELS):
+        x, nv, state = track_inputs(c, dev, f32)
+        x64, _, state64 = track_inputs(c, dev)
+        (soft, valid, _, _), err, twin_ms = hold_track(x, nv, state,
+                                                       f"float32 C={c}")
+
+        def t1(xs, st):
+            return lambda: ts.track_symbols_cuda(xs, nv, st, CONFIG.afc_alpha,
+                                                 maxs)
+        # in turns: float32, float64, float64, float32
+        turns = [cuda_ms(t1(*a), TRACK_REPS) for a in
+                 ((x, state), (x64, state64), (x64, state64), (x, state))]
+        ms, ms64 = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        nsym = int(valid.sum())
+        b_ms, b_by = track_bound(nsym, int(nv.sum()), c, maxs, real_bytes=4)
+        row = dict(ms=ms, plain_ms=twin_ms, max_abs_err=err, bound_ms=b_ms,
+                   bound_by=b_by, roofline=b_ms / ms, library_ms=None,
+                   float64_ms=ms64, turns_ms=turns, symbols=nsym)
+        rows[c] = {"track_symbols[float32]": row}
+        air_ms = SPF / REAL_TIME_MSPS / 1e3
+        log(f"[precision] (a) C={c}: track_symbols[float32] n_sym, "
+            f"samples_used and sym_valid equal to the twin's, soft within "
+            f"{err:.3e} (max|soft| {float(soft.abs().max()):.3e}, tolerance "
+            f"{TRACK_F32_RTOL:g} of it); {nsym} symbols: {ms:.3f} ms per "
+            f"chunk against float64's {ms64:.3f} ms in turns "
+            f"{[round(t, 3) for t in turns]} ({air_ms:.0f} ms of air, "
+            f"{air_ms / ms:.1f}x real time), twin {twin_ms:.0f} ms (host), "
+            f"bound {b_ms:.4f} ms ({b_by}) ({card})")
+        ext = torch.cat([torch.zeros((c, eb), dtype=f32, device=dev), soft],
+                        1)[:, eb - 23:]
+        ext64 = ext.double()
+        ints = torch.zeros((c, 6), dtype=torch.int32, device=dev)
+        q0 = torch.zeros(c, dtype=f32, device=dev)
+        raw, norm = sync_correlate(ext)
+        _, given_twin_ms = hold_sync(raw, norm, valid, ints, q0,
+                                     f"float32 C={c}")
+        got, soft_twin_ms = hold_sync_soft(ext, valid, ints, q0,
+                                           f"float32 C={c}")
+        raw64, norm64 = sync_correlate(ext64)
+        q64 = q0.double()
+        timed = {}
+        for name, fn, fn64, plain in (
+                ("GivenSync",
+                 lambda: sc.sync_scan_cuda(raw, norm, valid, ints, q0),
+                 lambda: sc.sync_scan_cuda(raw64, norm64, valid, ints, q64),
+                 given_twin_ms),
+                ("SoftSync",
+                 lambda: sc.sync_correlate_scan_cuda(ext, valid, ints, q0),
+                 lambda: sc.sync_correlate_scan_cuda(ext64, valid, ints, q64),
+                 soft_twin_ms)):
+            turns = [device_ms(f, SYNC_REPS) for f in (fn, fn64, fn64, fn)]
+            ms, ms64 = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            b_ms, b_by = sync_bound(c, maxs, int_ops_per_s,
+                                    name == "SoftSync", real_bytes=4)
+            rows[c][f"sync_scan[{name},float32]"] = dict(
+                ms=ms, plain_ms=plain, max_abs_err=0.0, bound_ms=b_ms,
+                bound_by=b_by, roofline=b_ms / ms, library_ms=None,
+                float64_ms=ms64, turns_ms=turns)
+            timed[name] = (ms, ms64, b_ms)
+        log(f"[precision] (a) C={c}: sync_scan[float32] bit-identical, both "
+            f"instantiations ({int(got[2].sum())} frames ready): "
+            + ", ".join(f"{k} {v[0]:.4f} ms against float64's {v[1]:.4f} "
+                        f"(bound {v[2]:.5f})" for k, v in timed.items())
+            + f" ({card})")
+    t0 = time.perf_counter()
+    for name in TRACK_EDGE_CASES + TRACK_F32_EDGE_CASES:
+        x, nv, state = track_edge_case(name, dev, f32)
+        (_, valid, _, used), err, twin_ms = hold_track(x, nv, state,
+                                                       f"float32 {name}")
+        if name == "odd rows" and valid.sum(1).tolist()[2] < 20:
+            raise AssertionError(f"[precision] odd rows: n_sym "
+                                 f"{valid.sum(1).tolist()}")
+        log(f"[precision] (a) track_symbols[float32] on {name} "
+            f"({tuple(x.shape)}, n_valid {nv.tolist()[:4]}): n_sym "
+            f"{valid.sum(1).tolist()[:4]} and samples_used "
+            f"{used.tolist()[:4]} equal to the twin's, soft within "
+            f"{err:.3e} (twin {twin_ms:.0f} ms)")
+    stress = list(sync_stress(TRACK_CHANNELS, maxs, dev))
+    # channels 5, 11, ... LOCKED with every norm on the locked threshold:
+    # float32's 0.7 passes (EV_SYNC_OK) where a double compare would not
+    stress[1][5::6] = CONFIG.sync_locked_norm_thresh
+    stress[3][5::6, 1] = 1_000
+    stress = [t.float() if t.dtype == torch.float64 else t for t in stress]
+    (_, _, ready, _, events, _, _), _ = hold_sync(*stress, "float32 stress")
+    on_thresh = (stress[1] == float(np.float32(CONFIG.sync_locked_norm_thresh))
+                 ) & (events == 3)
+    if not bool(on_thresh.any()):
+        raise AssertionError("[precision] no locked check at the rounded "
+                             "threshold in the float32 stress input")
+    x, valid, ints, q = soft_stress(TRACK_CHANNELS, maxs, dev)
+    hold_sync_soft(x.float(), valid, ints, q.float(), "float32 soft stress")
+    seen = Counter()
+    for name in SYNC_EDGE_CASES:
+        x, valid, ints, q = sync_edge_case(name, dev)
+        x, q = x.float(), q.float()
+        if name == "view":
+            cat = torch.zeros((x.shape[0], eb + x.shape[1] - 23),
+                              dtype=torch.float32, device=dev)
+            cat[:, eb - 23:] = x
+            x = cat[:, eb - 23:]
+        got, _ = hold_sync_soft(x, valid, ints, q, f"float32 {name}")
+        hold_sync(got[7], got[8], valid, ints, q, f"float32 {name}")
+        seen.update(got[4].cpu().numpy().ravel().tolist())
+    log(f"[precision] (a) sync_scan[float32] both instantiations "
+        f"bit-identical on the stress inputs ({int(on_thresh.sum())} locked "
+        f"checks passed at float32's 0.7) and {', '.join(SYNC_EDGE_CASES)} "
+        f"(events by code {[seen[k] for k in range(6)]}); the edges of "
+        f"track_symbols[float32] held ({time.perf_counter() - t0:.1f} s)")
+    return rows
+
+
+def cpu_precision(job):
+    """The host's twin run of one (b) job: rx_batch or StreamingDemodulator
+    at float32 over a golden capture, with the card's CFO estimate pinned
+    (run in a worker process)."""
+    import torch
+    from opv_tpu_torch.rx.pipeline import rx_batch
+    from opv_tpu_torch.stream import StreamingDemodulator
+    torch.set_num_threads(1)
+    kind, name, opts = job
+    if kind == "batch":
+        out = rx_batch(capture(name), dtype="float32", device="cpu", **opts)
+        return {k: out[k] for k in ("frames", "metrics", "t_idx", "sync_q",
+                                    "n_symbols", "samples_used")}
+    sd = StreamingDemodulator(device="cpu", dtype="float32", **opts)
+    return sd.feed(capture(name)) + sd.flush()
+
+
+def precision_goldens(dev, card):
+    """(b) rx_batch(dtype="float32") and StreamingDemodulator(dtype=
+    "float32") on the card over the nine golden checks (and raw3): every
+    StreamingDemodulator run the reference's frames; rx_batch the
+    reference's frames where the batch mode reads them (PRECISION_BATCH_
+    GOLDENS); both equal to the same receiver on the host given the card's
+    CFO estimate (the complex64 grid's argmax may round apart between
+    devices): frames, metrics and symbol indices equal, sync quality within
+    PRECISION_Q_TOL."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from opv_tpu_torch.rx.pipeline import rx_batch
+    from opv_tpu_torch.stream import StreamingDemodulator
+    t0 = time.perf_counter()
+    batch, stream, jobs = [], [], []
+    for name, gold, opts in TRACK_GOLDENS + (("raw3", "raw3.bin", {}),):
+        out = rx_batch(capture(name), dtype="float32", device=dev, **opts)
+        batch.append(out)
+        pin = {"init_offset": float(out["est_offset"]), **opts}
+        jobs.append(("batch", name, pin))
+        if (name, gold) in PRECISION_BATCH_GOLDENS and \
+                [bytes(f) for f in out["frames"]] != golden_frames(gold):
+            raise AssertionError(f"[precision] (b) rx_batch float32 {name}: "
+                                 f"{len(out['frames'])} frames, not {gold}")
+    for name, gold, opts in TRACK_GOLDENS:
+        sd = StreamingDemodulator(device=dev, dtype="float32", **opts)
+        got = sd.feed(capture(name)) + sd.flush()
+        stream.append(got)
+        jobs.append(("stream", name, {**opts, "init_offset": sd.est_offset}))
+        if [t[0] for t in got] != golden_frames(gold):
+            raise AssertionError(f"[precision] (b) StreamingDemodulator "
+                                 f"float32 {name} {opts}: {len(got)} frames, "
+                                 f"not {gold}")
+    card_s = time.perf_counter() - t0
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(8, mp_context=ctx) as pool:
+        cpu = list(pool.map(cpu_precision, jobs))
+    dq = 0.0
+    for out, want, job in zip(batch, cpu, jobs):
+        what = f"(b) rx_batch float32 {job[1]} card vs cpu"
+        for k in ("frames", "metrics", "t_idx", "n_symbols", "samples_used"):
+            if not np.array_equal(out[k], want[k]):
+                raise AssertionError(f"[precision] {what}: {k} differs")
+        dq = max(dq, float(np.abs(out["sync_q"] - want["sync_q"])
+                           .max(initial=0)))
+    for got, want, job in zip(stream, cpu[len(batch):], jobs[len(batch):]):
+        dq = max(dq, same_tracking(got, want, f"(b) StreamingDemodulator "
+                                   f"float32 {job[1]} card vs cpu",
+                                   PRECISION_Q_TOL))
+    if dq > PRECISION_Q_TOL:
+        raise AssertionError(f"[precision] (b) sync quality card vs cpu "
+                             f"differs by {dq:.3e}")
+    n = sum(len(r) for r in stream)
+    log(f"[precision] (b) float32 on the card: StreamingDemodulator the nine "
+        f"golden checks byte for byte ({n} frames), rx_batch "
+        f"{len(PRECISION_BATCH_GOLDENS)} goldens byte for byte "
+        f"({sum(int(o['decoded']) for o in batch)} frames over "
+        f"{len(batch)} captures); both equal to the host's float32 run at "
+        f"the card's CFO (largest sync-quality difference {dq:.3e}); card "
+        f"runs {card_s:.1f} s, est offsets "
+        f"{[float(o['est_offset']) for o in batch]} ({card})")
+    return dict(card_s=card_s, frames=n, max_q_diff=dq,
+                est_offsets=[float(o["est_offset"]) for o in batch])
+
+
+def divergent_feed():
+    """tests/test_torch_tracking_multichannel.py's TestDivergentClocks feed:
+    bert3 and bert3 resampled to a clock 300 ppm slower, three passes."""
+    s = capture("bert3")
+    ppm = 300e-6
+    n_out = int(len(s) / (1 + ppm)) - 2
+    t = np.arange(n_out) * (1 + ppm)
+    i0 = t.astype(np.int64)
+    f = t - i0
+    slow = s[i0] * (1 - f) + s[i0 + 1] * f
+    n = min(len(s), len(slow))
+    return np.concatenate([np.stack([s[:n], slow[:n]])] * 3, axis=1)
+
+
+def precision_divergent(dev, card):
+    """(d) TestDivergentClocks' feed through MultiChannelTrackingDemodulator
+    (2 channels) on the card at float64 and float32, against the same
+    receiver on the host given the card's CFO estimates: no deadlock, no
+    input lost (>= 8 frames a channel), tuples equal."""
+    from opv_tpu_torch.stream import MultiChannelTrackingDemodulator
+    x = divergent_feed()
+    out = {}
+    for dtype in ("float64", "float32"):
+        t0 = time.perf_counter()
+        mc = MultiChannelTrackingDemodulator(2, device=dev, dtype=dtype)
+        got = mc.feed(x) + mc.flush()
+        card_s = time.perf_counter() - t0
+        cpu = MultiChannelTrackingDemodulator(
+            2, device="cpu", dtype=dtype, init_offset=mc.est_offset)
+        want = cpu.feed(x) + cpu.flush()
+        per = [sum(1 for r in got if r[0] == c) for c in (0, 1)]
+        if min(per) < 8:
+            raise AssertionError(f"[precision] (d) {dtype}: frames a channel "
+                                 f"{per}")
+        dq = same_tracking([r[1:] + (r[0],) for r in got],
+                           [r[1:] + (r[0],) for r in want],
+                           f"(d) divergent clocks {dtype} card vs cpu",
+                           PRECISION_Q_TOL)
+        if [r[0] for r in got] != [r[0] for r in want]:
+            raise AssertionError(f"[precision] (d) {dtype}: channel order "
+                                 f"differs")
+        out[dtype] = dict(frames=per, card_s=card_s, max_q_diff=dq,
+                          est_offset=[float(v) for v in mc.est_offset])
+        log(f"[precision] (d) divergent clocks (300 ppm, {x.shape[1]} "
+            f"samples a channel) {dtype}: {per} frames, every tuple equal to "
+            f"the host's at the card's CFO {out[dtype]['est_offset']} "
+            f"(largest sync-quality difference {dq:.3e}; card {card_s:.1f} s "
+            f"host clock) ({card})")
+    return out
+
+
+def precision_complex128(dev, card):
+    """(e) the path of (e): smoke-64x20 as complex128 through rx_locked,
+    rx_locked_steady and rx_fast on the card, in float64 as the JAX package
+    computes complex128: every frame byte-exact, metric 0, at its delay
+    (rx_fast: each whose payload fits, at its start or one sample late on
+    the sync apex's plateau); peak memory.  Returns (stats, the steady
+    block's soft-stage operands and nsym for precision_k3)."""
+    import torch
+    from opv_tpu_torch.rx import fast
+    from opv_tpu_torch.rx.locked import (rx_locked, rx_locked_steady,
+                                         soft_stage_operands)
+    x, frames, delays = synthesize(dev)
+    x = x.to(torch.complex128)
+    c, n = x.shape
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    acq = rx_locked(x, n_frames=FRAMES)
+    p0, foff, frac = acq["p0"], acq["freq_offset"], acq["frac"]
+    steady = rx_locked_steady(x, p0, foff, FRAMES, frac=frac)
+    out = fast.rx_fast(x, max_frames=DENSE_MAX_FRAMES)
+    torch.cuda.synchronize(dev)
+    host_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for what, o in (("rx_locked", acq), ("rx_locked_steady", steady)):
+        fv = int(o["frame_valid"].sum())
+        bad = int((o["metrics"] != 0).sum())
+        same = bool((o["frames"] == frames[None]).all())
+        if not (fv == c * FRAMES and bad == 0 and same
+                and o["sync_q"].dtype == torch.float64):
+            raise AssertionError(f"[precision] (e) {what} complex128: {fv}/"
+                                 f"{c * FRAMES} valid, {bad} nonzero metrics, "
+                                 f"byte-equal {same}, {o['sync_q'].dtype}")
+    if p0.tolist() != list(delays):
+        raise AssertionError(f"[precision] (e) p0 {p0.tolist()[:8]} != "
+                             f"delays {delays[:8]}")
+    r = dense_host(out)
+    fits = [[d + k * SPF for k in range(FRAMES)
+             if d + k * SPF + 960 + 2143 * 40 < n - 39] for d in delays]
+    want_frames = [bytes(f) for f in frames.cpu().numpy()]
+    exact = 0
+    for ch, starts in enumerate(fits):
+        fv = r["frame_valid"][ch]
+        e, _ = check_dense_frames(
+            list(zip((int(p) for p in r["starts"][ch][fv] - 960),
+                     (int(m) for m in r["metrics"][ch][fv]),
+                     (bytes(f) for f in r["frames"][ch][fv]))),
+            [(p, want_frames[k]) for k, p in enumerate(starts)],
+            f"precision (e) rx_fast complex128 channel {ch}")
+        exact += e
+    n_fit = sum(len(f) for f in fits)
+    nsym = (n - 40) // 40
+    ops = soft_stage_operands(x, p0 % 40, foff, nsym, None, frac)
+    log(f"[precision] (e) smoke-{c}x{FRAMES} as complex128 ({n} samples a "
+        f"channel, {c * n * 16 / 2**30:.2f} GiB): rx_locked and "
+        f"rx_locked_steady {c * FRAMES}/{c * FRAMES} frames valid, metric 0, "
+        f"byte-exact, p0 = delays, sync_q float64; rx_fast all {n_fit} "
+        f"fitting frames byte-exact, {exact} at their exact start (the rest "
+        f"one sample late on the apex plateau); {host_s:.1f} s host "
+        f"clock for the three; peak memory {peak / 2**30:.2f} GiB ({card})")
+    return dict(channels=c, frames=c * FRAMES, rx_fast_exact=exact,
+                rx_fast_fit=n_fit, host_s=host_s, peak_bytes=peak), \
+        (ops, nsym, x, (p0, foff, frac))
+
+
+def precision_times(x, state, card):
+    """(e) rx_locked_steady and rx_fast on smoke-64x20 as complex128 and as
+    complex64 in turns (CUDA events, medians): what the float64 path
+    costs."""
+    import torch
+    from opv_tpu_torch.rx import fast
+    from opv_tpu_torch.rx.locked import rx_locked_steady
+    p0, foff, frac = state
+    inputs = {"complex64": x.to(torch.complex64), "complex128": x}
+    res = {k: dict(steady_ms=[], rx_fast_ms=[]) for k in inputs}
+    for name in ("complex64", "complex128", "complex128", "complex64"):
+        xs = inputs[name]
+        res[name]["steady_ms"].append(median_ms(
+            lambda: rx_locked_steady(xs, p0, foff, FRAMES, frac=frac),
+            STEADY_REPS))
+        res[name]["rx_fast_ms"].append(median_ms(
+            lambda: fast.rx_fast(xs, max_frames=DENSE_MAX_FRAMES), DENSE_REPS))
+    log(f"[precision] (e) smoke-64x20 in turns (complex64, complex128, "
+        f"complex128, complex64; medians of CUDA events): rx_locked_steady "
+        f"{[round(v, 3) for v in res['complex128']['steady_ms']]} ms as "
+        f"complex128 against {[round(v, 3) for v in res['complex64']['steady_ms']]}"
+        f" as complex64 (its rows made from the samples in the call); rx_fast "
+        f"{[round(v, 2) for v in res['complex128']['rx_fast_ms']]} against "
+        f"{[round(v, 2) for v in res['complex64']['rx_fast_ms']]} ({card})")
+    return res
+
+
+def precision_k3(ops, nsym: int, card):
+    """(e) the soft stage's float64 instantiation on the steady block's
+    operands (64 channels of smoke-64x20 as complex128): held against its
+    twin (soft and correlation within SOFT_F64_RTOL), its time, its bytes
+    bound, the twin's time and torch.bmm's float64 time of the correlation
+    (a yardstick the port never calls)."""
+    import torch
+    from opv_tpu_torch.ops import symbol_soft as ss
+    err, scale_ref, raw_note = hold_soft(ops, nsym, "precision (e) K3 float64",
+                                         SOFT_F64_RTOL)
+    rows, kern = ops[0][:, : nsym + 1], ops[1]
+    nbytes = ss.moved_bytes(*ops, nsym)
+    bound_ms, bound_by = bound(nbytes, 2 * rows.numel() * 8,
+                               PEAK_OPS_PER_S["f64"])
+    ms = cuda_ms(lambda: ss.symbol_soft_cuda(*ops, nsym), KERNEL_REPS)
+    plain = cuda_ms(lambda: ss.symbol_soft_reference(*ops, nsym), 3)
+    library = cuda_ms(lambda: torch.bmm(rows, kern), KERNEL_REPS)
+    cfg = ss.kernel_config(torch.float64)
+    log(f"[precision] (e) symbol_soft[float64] rows {tuple(ops[0].shape)} "
+        f"(a view of the complex128 samples), nsym {nsym}: max |kernel - "
+        f"twin| {err:.4g} of max|soft| {scale_ref:.4g} (rel "
+        f"{err / scale_ref:.3g}); {raw_note}; kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), roofline "
+        f"{100 * bound_ms / ms:.1f}%; torch.bmm float64 of the correlation "
+        f"{library:.4f} ms; twin {plain:.3f} ms; config {cfg} ({card})")
+    return dict(ms=ms, plain_ms=plain, max_abs_err=err,
+                max_rel_err=err / scale_ref, bound_ms=bound_ms,
+                bound_by=bound_by, roofline=bound_ms / ms, library_ms=library,
+                config=cfg)
+
+
+def phase_precision(dev, card, int_ops_per_s: float, tracking: dict):
+    """The float32 tracking receiver and the complex128 locked and dense
+    receivers on the card (phase 13): the float32 kernels, the goldens,
+    tracking-64 at float32 beside phase 11's float64 run, divergent clocks
+    at both precisions, smoke-64x20 as complex128 and K3's float64
+    instantiation."""
+    import torch
+    from opv_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    kernels = precision_kernels(dev, card, int_ops_per_s)
+    routes = sync_routes(dev, card, torch.float32)
+    registry.set_viterbi_radix(4)
+    registry.reset_launch_counts()
+    goldens = precision_goldens(dev, card)
+    mc = tracking_64(dev, card, "float32")
+    divergent = precision_divergent(dev, card)
+    c128, (ops, nsym, x, state) = precision_complex128(dev, card)
+    torch.cuda.synchronize()
+    launches = registry.launch_counts()
+    k3 = precision_k3(ops, nsym, card)
+    del ops
+    c128["times"] = precision_times(x, state, card)
+    del x
+    need = ("track_symbols[float32]", "sync_scan[SoftSync,float32]",
+            "viterbi_r4", "symbol_soft[float64]")
+    if min(launches[k] for k in need) <= 0 \
+            or launches["sync_scan[GivenSync,float32]"] \
+            or routes["sync_scan[GivenSync,float32]"] <= 0:
+        raise AssertionError(f"[precision] a kernel of the float32 path never "
+                             f"launched, or GivenSync launched on it: "
+                             f"{launches}; the GivenSync route: {routes}")
+    f64 = tracking["tracking_64"]
+    log(f"[precision] (c) tracking-64: float32 {mc['ms_per_chunk']:.2f} ms "
+        f"per chunk ({mc['msps']:.1f} Msamples/s, {mc['x_real_time']:.2f}x "
+        f"real time, peak {mc['peak_bytes'] / 2**30:.2f} GiB) against "
+        f"float64's {f64['ms_per_chunk']:.2f} ms ({f64['msps']:.1f} "
+        f"Msamples/s, {f64['x_real_time']:.2f}x, peak "
+        f"{f64['peak_bytes'] / 2**30:.2f} GiB) in phase 11 of this run; "
+        f"device ms per chunk float32 "
+        f"{ {k: round(v, 3) for k, v in mc['device_ms_per_chunk'].items()} } "
+        f"against float64 "
+        f"{ {k: round(v, 3) for k, v in f64['device_ms_per_chunk'].items()} } "
+        f"({card})")
+    log(f"[precision] launches over (b)-(e) {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    kernels["symbol_soft[float64]"] = k3
+    return dict(launches=launches, routes_launches=routes, kernels=kernels,
+                goldens=goldens, tracking_64=mc, divergent=divergent,
+                complex128=c128)
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import torch
@@ -3569,6 +4127,7 @@ def main() -> int:
     wideband = phase_wideband(dev, card)
     tracking = phase_tracking(dev, card, int_ops_per_s, cli["processes"])
     dense = phase_dense(dev, card)
+    precision = phase_precision(dev, card, int_ops_per_s, tracking)
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -3584,6 +4143,7 @@ def main() -> int:
         k["launches_wideband"] = wideband["launches"][k["name"]]
         k["launches_tracking"] = tracking["launches"][k["name"]]
         k["launches_dense"] = dense["launches"][k["name"]]
+        k["launches_precision"] = precision["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -3595,7 +4155,8 @@ def main() -> int:
             launches_cli=cli["launches"][key],
             launches_wideband=wideband["launches"][key],
             launches_tracking=tracking["launches"][key],
-            launches_dense=dense["launches"][key], **soft[name]))
+            launches_dense=dense["launches"][key],
+            launches_precision=precision["launches"][key], **soft[name]))
     kernels.append(dict(
         name="phase_track", route="cuda",
         source="opv_tpu_torch/csrc/phase_track.cu",
@@ -3607,6 +4168,7 @@ def main() -> int:
         launches_wideband=wideband["launches"]["phase_track"],
         launches_tracking=tracking["launches"]["phase_track"],
         launches_dense=dense["launches"]["phase_track"],
+        launches_precision=precision["launches"]["phase_track"],
         **cli["phase_track"]))
     # the tracking receiver's kernels: ms and bound at C = 64 (one chunk of
     # the golden mix); launches: the tracking phase's (b)-(d), GivenSync's
@@ -3626,12 +4188,45 @@ def main() -> int:
             **{f"launches_{ph}": res["launches"][name] for ph, res in (
                 ("stream", stream), ("modes", modes), ("cli", cli),
                 ("wideband", wideband), ("tracking", tracking),
-                ("dense", dense))},
+                ("dense", dense), ("precision", precision))},
             **row))
+    # their float32 instantiations: ms and bound at C = 64 (phase 13 (a),
+    # beside the float64 kernel timed in turns); launches: phase 13's
+    # (b)-(d), GivenSync's from its own float32 route
+    for name, replaces in (("track_symbols[float32]", "opv_tpu/rx/demod.py:195"),
+                           ("sync_scan[GivenSync,float32]",
+                            "opv_tpu/rx/sync.py:166"),
+                           ("sync_scan[SoftSync,float32]",
+                            "opv_tpu/rx/sync.py:166")):
+        row = dict(precision["kernels"][TRACK_CHANNELS][name])
+        row.pop("symbols", None)
+        given = name.startswith("sync_scan[GivenSync")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"opv_tpu_torch/csrc/{name.split('[')[0]}.cu",
+            replaces=replaces,
+            launches=(precision["routes_launches"] if given
+                      else precision["launches"])[name],
+            **{f"launches_{ph}": res["launches"][name] for ph, res in (
+                ("stream", stream), ("modes", modes), ("cli", cli),
+                ("wideband", wideband), ("tracking", tracking),
+                ("dense", dense), ("precision", precision))},
+            **row))
+    key = "symbol_soft[float64]"
+    kernels.append(dict(
+        name=key, route="cuda", source="opv_tpu_torch/csrc/symbol_soft.cu",
+        replaces="opv_tpu/ops/pallas/correlate.py:37",
+        launches=precision["launches"][key],
+        **{f"launches_{ph}": res["launches"][key] for ph, res in (
+            ("stream", stream), ("modes", modes), ("cli", cli),
+            ("wideband", wideband), ("tracking", tracking),
+            ("dense", dense), ("precision", precision))},
+        **precision["kernels"][key]))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
                       "stream": stream, "modes": modes, "cli": cli,
                       "wideband": wideband, "tracking": tracking,
-                      "dense": dense, "peak_bytes": peak}), flush=True)
+                      "dense": dense, "precision": precision,
+                      "peak_bytes": peak}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

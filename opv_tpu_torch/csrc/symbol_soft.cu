@@ -45,6 +45,17 @@
 // nsym+1, 8) correlation instead of the soft stream (float32, or the exact
 // int32 dot for int8 rows) so tests can hold the dot itself against a plain
 // contraction.
+//
+// float64 rows (F64Rows, the JAX package's complex128 path,
+// opv_tpu/rx/locked.py:212-265): the same design with float64 through
+// the rows, columns, accumulators, rescale, phi, the combine and the soft
+// stream.  A row is 640 B, so a tile is 128 rows of one thread each at a
+// padded stride of 82 doubles (656 B: a quarter warp's 16-byte reads hit
+// banks 4 t mod 32, all distinct), 2 stages (178.5 KB with the columns
+// and B halves, one block per SM).  At 64 channels x 44,228 rows a call
+// moves 1.83 GB: 0.55 ms at 3.35 TB/s; its 2 x 80 x 8 float64 operations
+// a row (0.9 GFLOP) take 0.027 ms at the card's 34 TFLOP/s, so bytes
+// bound it, as for float32 (it runs at ~87% of that bound; PERF.md §6).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -77,29 +88,36 @@ __device__ __forceinline__ auto lane(const V& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
+// Four reals of a correlation half: float4, or for float64 rows four
+// doubles (16-byte aligned, as float4's slots in shared memory).
+struct __align__(16) dquad {
+  double x, y, z, w;
+};
+
 // a = {ReA0, ReA1, ImA0, ImA1} of row s, b = {ReB0, ReB1, ImB0, ImB1} of
-// row s+1, ph = {re0, im0, re1, im1}.
-__device__ __forceinline__ float combine(float4 a4, float4 b4, const float* ph) {
-  const float a[4] = {a4.x, a4.y, a4.z, a4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
-  float p[2];
+// row s+1, ph = {re0, im0, re1, im1}; in the rows' real type F.
+template <typename F, typename Q>
+__device__ __forceinline__ F combine(Q a4, Q b4, const F* ph) {
+  const F a[4] = {a4.x, a4.y, a4.z, a4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
+  F p[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const float pre = ph[2 * k], pim = ph[2 * k + 1];
-    const float cre = a[k] + pre * b[k] - pim * b[2 + k];
-    const float cim = a[2 + k] + pre * b[2 + k] + pim * b[k];
+    const F pre = ph[2 * k], pim = ph[2 * k + 1];
+    const F cre = a[k] + pre * b[k] - pim * b[2 + k];
+    const F cim = a[2 + k] + pre * b[2 + k] + pim * b[k];
     p[k] = cre * cre + cim * cim;
   }
   return p[1] - p[0];
 }
 
 // Split a row's correlation into its A half (kept by the row's thread) and
-// its B half (handed to the previous symbol), rescaled to float32.
-template <typename Acc>
-__device__ __forceinline__ void split(const Acc* acc, float scale, float4& a, float4& b) {
-  a = make_float4((float)acc[0] * scale, (float)acc[1] * scale, (float)acc[4] * scale,
-                  (float)acc[5] * scale);
-  b = make_float4((float)acc[2] * scale, (float)acc[3] * scale, (float)acc[6] * scale,
-                  (float)acc[7] * scale);
+// its B half (handed to the previous symbol), rescaled to the real type F.
+template <typename F, typename Acc, typename Q>
+__device__ __forceinline__ void split(const Acc* acc, F scale, Q& a, Q& b) {
+  a.x = (F)acc[0] * scale; a.y = (F)acc[1] * scale;
+  a.z = (F)acc[4] * scale; a.w = (F)acc[5] * scale;
+  b.x = (F)acc[2] * scale; b.y = (F)acc[3] * scale;
+  b.z = (F)acc[6] * scale; b.w = (F)acc[7] * scale;
 }
 
 template <int NT, int RPT, int S>
@@ -123,6 +141,8 @@ struct Config {
 struct F32Rows : Config<128, 2, 2> {
   using Elem = float;
   using Acc = float;
+  using Real = float;   // rescale, phi, combine and the soft stream
+  using Quad = float4;
   static constexpr int kRowBytes = kRow * 4;
   static constexpr int kSmemRowBytes = (kRow + 4) * 4;  // 84 floats
   struct Cols { float4 k[kRow * 2]; };  // tap t: k[2t] = cols 0-3, k[2t+1] = 4-7
@@ -161,6 +181,8 @@ struct F32Rows : Config<128, 2, 2> {
 struct I8Rows : Config<256, 2, 3> {
   using Elem = int8_t;
   using Acc = int;
+  using Real = float;
+  using Quad = float4;
   static constexpr int kRowBytes = kRow;
   static constexpr int kSmemRowBytes = kRow;  // 20 words: conflict-free int4 reads
   struct Cols { int4 k[kRowW][2]; };  // word w: k[w][0] = cols 0-3, k[w][1] = 4-7
@@ -204,13 +226,57 @@ struct I8Rows : Config<256, 2, 3> {
   }
 };
 
+// float64 rows: 128 x 1 rows, 2 stages of 129 rows (see the header).
+struct F64Rows : Config<128, 1, 2> {
+  using Elem = double;
+  using Acc = double;
+  using Real = double;
+  using Quad = dquad;
+  static constexpr int kRowBytes = kRow * 8;
+  static constexpr int kSmemRowBytes = (kRow + 2) * 8;  // 82 doubles
+  // tap t: k[4t .. 4t+3] = cols (0,1), (2,3), (4,5), (6,7)
+  struct Cols { double2 k[kRow * 4]; };
+
+  static __device__ __forceinline__ void load_cols(Cols& ks, const double* kc, int tid) {
+    for (int i = tid; i < kRow * kCols; i += kThreads) reinterpret_cast<double*>(ks.k)[i] = kc[i];
+  }
+  template <int N>
+  static __device__ __forceinline__ void dot(const unsigned char* x, int step, const Cols& ks,
+                                             double (&acc)[N][kCols]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int o = 0; o < kCols; ++o) acc[i][o] = 0.0;
+#pragma unroll 2
+    for (int q = 0; q < kRow / 2; ++q) {
+      double2 v[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = reinterpret_cast<const double2*>(x + i * step)[q];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const double2* kt = ks.k + 4 * (2 * q + j);
+        const double2 k0 = kt[0], k1 = kt[1], k2 = kt[2], k3 = kt[3];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const double u = j == 0 ? v[i].x : v[i].y;
+          acc[i][0] = fma(u, k0.x, acc[i][0]); acc[i][1] = fma(u, k0.y, acc[i][1]);
+          acc[i][2] = fma(u, k1.x, acc[i][2]); acc[i][3] = fma(u, k1.y, acc[i][3]);
+          acc[i][4] = fma(u, k2.x, acc[i][4]); acc[i][5] = fma(u, k2.y, acc[i][5]);
+          acc[i][6] = fma(u, k3.x, acc[i][6]); acc[i][7] = fma(u, k3.y, acc[i][7]);
+        }
+      }
+    }
+  }
+};
+
 // Dynamic shared memory: the columns, the B halves of a tile (T+1 rows),
 // the carried A half, then the ring of kStages tiles of T+1 rows.  Every
 // part is a multiple of 16 bytes.
 template <typename R>
 struct Layout {
   static constexpr int kStageBytes = (R::kTile + 1) * R::kSmemRowBytes;
-  static constexpr int kRing = (int)sizeof(typename R::Cols) + (R::kTile + 2) * 16;
+  static constexpr int kRing =
+      (int)sizeof(typename R::Cols) + (R::kTile + 2) * (int)sizeof(typename R::Quad);
   static constexpr int kBytes = kRing + R::kStages * kStageBytes;
 };
 
@@ -273,23 +339,25 @@ __device__ __forceinline__ void store_raw(Acc* out, const Acc* acc, int c, int n
 template <typename R>
 __global__ void __launch_bounds__(R::kThreads)
 symbol_soft(const typename R::Elem* __restrict__ rows, long long cstride,
-            const typename R::Elem* __restrict__ kern, const float* __restrict__ resc,
-            const float* __restrict__ phi, void* __restrict__ out, int nsym, int ntiles,
-            long long items, int raw) {
+            const typename R::Elem* __restrict__ kern, const typename R::Real* __restrict__ resc,
+            const typename R::Real* __restrict__ phi, void* __restrict__ out, int nsym,
+            int ntiles, long long items, int raw) {
   using Acc = typename R::Acc;
+  using F = typename R::Real;
+  using Q = typename R::Quad;
   using L = Layout<R>;
   constexpr int NT = R::kThreads, RPT = R::kRowsPerThread, T = R::kTile, S = R::kStages;
   constexpr int kRowB = R::kSmemRowBytes;
   extern __shared__ __align__(16) unsigned char smem[];
   auto& ks = *reinterpret_cast<typename R::Cols*>(smem);
-  float4* const bsh = reinterpret_cast<float4*>(smem + sizeof(typename R::Cols));
-  float4* const carry = bsh + T + 1;  // A half of the last symbol of the previous tile
+  Q* const bsh = reinterpret_cast<Q*>(smem + sizeof(typename R::Cols));
+  Q* const carry = bsh + T + 1;  // A half of the last symbol of the previous tile
   unsigned char* const ring = smem + L::kRing;
   const int tid = threadIdx.x;
   const long long start = items * blockIdx.x / gridDim.x;
   const long long end = items * (blockIdx.x + 1) / gridDim.x;
   Acc* const raw_out = static_cast<Acc*>(out);
-  float* const soft_out = static_cast<float*>(out);
+  F* const soft_out = static_cast<F*>(out);
 
 #pragma unroll
   for (int p = 0; p < S - 1; ++p) {
@@ -299,7 +367,7 @@ symbol_soft(const typename R::Elem* __restrict__ rows, long long cstride,
     cp_async_commit();
   }
   int cur_c = -1;
-  float scale = 0.f, ph[4];
+  F scale = 0, ph[4];
   for (long long k = start; k < end; ++k) {
     const int it = (int)(k - start);
     if (k + S - 1 < end)  // refill the stage computed in the previous iteration
@@ -319,13 +387,13 @@ symbol_soft(const typename R::Elem* __restrict__ rows, long long cstride,
     const unsigned char* st = ring + (it % S) * L::kStageBytes;
     Acc acc[RPT][kCols];
     R::template dot<RPT>(st + tid * kRowB, NT * kRowB, ks, acc);
-    float4 a[RPT], b0 = make_float4(0.f, 0.f, 0.f, 0.f);
+    Q a[RPT], b0{};
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = tid + i * NT;
       if (r < t.nrows) {
         if (raw && (r < t.nt || t.last_ch)) store_raw(raw_out, acc[i], t.c, nsym, t.s0 + r);
-        float4 b;
+        Q b;
         split(acc[i], scale, a[i], b);
         bsh[r] = b;
         if (i == 0) b0 = b;
@@ -335,7 +403,7 @@ symbol_soft(const typename R::Elem* __restrict__ rows, long long cstride,
       Acc e[1][kCols];
       R::template dot<1>(st + T * kRowB, 0, ks, e);
       if (raw && t.last_ch) store_raw(raw_out, e[0], t.c, nsym, nsym);
-      float4 unused;
+      Q unused;
       split(e[0], scale, unused, bsh[T]);
     }
     // the previous tile's last symbol, waiting for this tile's first row
@@ -386,8 +454,8 @@ cudaError_t persistent_grid(int* grid) {
 }
 
 template <typename R>
-int launch(const void* rows, long long cstride, const void* kern, const float* resc,
-           const float* phi, void* out, int channels, int nsym, int raw, cudaStream_t st) {
+int launch(const void* rows, long long cstride, const void* kern, const void* resc,
+           const void* phi, void* out, int channels, int nsym, int raw, cudaStream_t st) {
   int grid = 0;
   const cudaError_t err = persistent_grid<R>(&grid);
   if (err != cudaSuccess) return (int)err;
@@ -395,9 +463,10 @@ int launch(const void* rows, long long cstride, const void* kern, const float* r
   const long long items = (long long)channels * ntiles;
   if (items < grid) grid = (int)items;
   using E = typename R::Elem;
+  using F = typename R::Real;
   symbol_soft<R><<<grid, R::kThreads, Layout<R>::kBytes, st>>>(
-      static_cast<const E*>(rows), cstride, static_cast<const E*>(kern), resc, phi, out, nsym,
-      ntiles, items, raw);
+      static_cast<const E*>(rows), cstride, static_cast<const E*>(kern),
+      static_cast<const F*>(resc), static_cast<const F*>(phi), out, nsym, ntiles, items, raw);
   return (int)cudaGetLastError();
 }
 
@@ -416,24 +485,35 @@ int config(int* cfg) {
 }  // namespace
 
 // rows: element pointer of row 0 of channel 0; cstride: channel stride in
-// elements (int8 rows: a 4-byte-aligned base and a multiple of 4).  out:
-// (C, nsym) float32 soft values, or with raw != 0 the (C, nsym+1, 8)
-// correlation (float32, or int32 for int8 rows).  Returns the first CUDA
-// error of the set-up or the launch (cudaGetLastError()).
-extern "C" int opv_symbol_soft(const void* rows, long long cstride, int is_int8,
+// elements (int8 rows: a 4-byte-aligned base and a multiple of 4).
+// row_type: 0 float32 rows (float32 kern, resc, phi and out), 1 int8 rows
+// (int8 kern, float32 resc, phi and out), 2 float64 rows (float64 kern,
+// resc, phi and out).  out: (C, nsym) soft values, or with raw != 0 the
+// (C, nsym+1, 8) correlation (the accumulator type: float32, int32 or
+// float64).  Returns the first CUDA error of the set-up or the launch
+// (cudaGetLastError()).
+extern "C" int opv_symbol_soft(const void* rows, long long cstride, int row_type,
                                const void* kern, const void* resc, const void* phi,
                                void* out, int channels, int nsym, int raw, void* stream) {
   if (channels <= 0 || nsym <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* r = static_cast<const float*>(resc);
-  const float* ph = static_cast<const float*>(phi);
-  return is_int8 ? launch<I8Rows>(rows, cstride, kern, r, ph, out, channels, nsym, raw, st)
-                 : launch<F32Rows>(rows, cstride, kern, r, ph, out, channels, nsym, raw, st);
+  switch (row_type) {
+    case 0: return launch<F32Rows>(rows, cstride, kern, resc, phi, out, channels, nsym, raw, st);
+    case 1: return launch<I8Rows>(rows, cstride, kern, resc, phi, out, channels, nsym, raw, st);
+    case 2: return launch<F64Rows>(rows, cstride, kern, resc, phi, out, channels, nsym, raw, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The launch configuration for a row type on the current device: cfg[0..4]
-// = threads per block, rows per thread, ring stages, dynamic shared-memory
-// bytes per block, persistent grid (SMs x blocks per SM).
-extern "C" int opv_symbol_soft_config(int is_int8, int* cfg) {
-  return is_int8 ? config<I8Rows>(cfg) : config<F32Rows>(cfg);
+// The launch configuration for a row type (as opv_symbol_soft's) on the
+// current device: cfg[0..4] = threads per block, rows per thread, ring
+// stages, dynamic shared-memory bytes per block, persistent grid (SMs x
+// blocks per SM).
+extern "C" int opv_symbol_soft_config(int row_type, int* cfg) {
+  switch (row_type) {
+    case 0: return config<F32Rows>(cfg);
+    case 1: return config<I8Rows>(cfg);
+    case 2: return config<F64Rows>(cfg);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -12,9 +12,18 @@
 // the per-symbol outputs (frame ready, quality at emit, the EV_*
 // transition code, misses and frames after the step).  An invalid step
 // changes nothing and emits EV_NONE.  The machine is integer adds,
-// compares and selects and float64 compares; the correlation is the
-// twin's adds in the twin's order (__dadd_rn/__dsub_rn, no contraction)
-// and one __ddiv_rn, so every output equals the twin's bits.
+// compares and selects and float compares; the correlation is the twin's
+// adds in the twin's order (__dadd_rn/__dsub_rn, no contraction) and one
+// __ddiv_rn, so every output equals the twin's bits.
+//
+// One template over the real type R as well: float64 (the reference's
+// precision) and float32 (the JAX package's dtype="float32" mode).  In
+// float32 every compare is a float32 compare against a threshold rounded
+// to float32 once (a Python float meeting a float32 array in JAX: 0.7
+// rounds below itself, so a float32 norm may pass that a double compare
+// would refuse), and the correlation's adds and division are
+// __fadd_rn/__fsub_rn/__fdiv_rn in the same order, so T2[float32] too is
+// bit-identical to its twin and to JAX's sync_correlate + sync_scan.
 //
 // What bounds it: the chain, and how much of it a symbol costs.  Each
 // symbol's state depends on the last, but almost no symbol changes more
@@ -62,10 +71,28 @@ constexpr int kTaps = 24;   // the sync word: SoftSync's taps
 // time; the launcher refuses another word.
 constexpr unsigned kSyncWord = 0x02B8DB;
 
+// rounded arithmetic that never contracts, in either real type
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double quot(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float quot(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double mag(double a) { return fabs(a); }
+__device__ __forceinline__ float mag(float a) { return fabsf(a); }
+
+// thresholds in R (each rounded once from its double)
+template <class R>
 struct Params {
-  double hunt_norm, locked_norm, hunt_raw;
+  R hunt_norm, locked_norm, hunt_raw;
   int sync_bits, encoded_bits, frame_symbols, miss_limit;
 };
+
+template <class R>
+Params<R> make_params(const double* thresholds, const int* counts) {
+  return Params<R>{R(thresholds[0]), R(thresholds[1]), R(thresholds[2]),
+                   counts[0], counts[1], counts[2], counts[3]};
+}
 
 // int32 wrap-around add (the JAX int32 carry wraps)
 __device__ __forceinline__ int add_wrap(int a, int b) {
@@ -73,23 +100,26 @@ __device__ __forceinline__ int add_wrap(int a, int b) {
 }
 
 // The carry of one channel, uniform across its warp.
+template <class R>
 struct Carry {
   int state, sss, misses, total, frames;
   bool collecting;
-  double sq;
+  R sq;
 };
 
 // One lane's outputs for its symbol of the tile.
+template <class R>
 struct Out {
   bool rdy;
   int ev, misses, frames;
-  double q;
+  R q;
 };
 
 // The reference's step on a valid symbol whose counters after the step
 // are sss_n and total_n; updates c, returns the outputs.
-__device__ __forceinline__ Out step(Carry& c, int sss_n, int total_n,
-                                    double r, double nrm, const Params& p) {
+template <class R>
+__device__ __forceinline__ Out<R> step(Carry<R>& c, int sss_n, int total_n,
+                                       R r, R nrm, const Params<R>& p) {
   const bool is_hunt = c.state == kHunt, is_ver = c.state == kVerify,
              is_lock = c.state == kLocked;
   const bool hunt_hit = is_hunt && total_n >= p.sync_bits &&
@@ -113,7 +143,7 @@ __device__ __forceinline__ Out step(Carry& c, int sss_n, int total_n,
   const bool rdy = ver_done || lock_emit;
   c.frames = add_wrap(c.frames, rdy ? 1 : 0);
   c.total = total_n;
-  Out o;
+  Out<R> o;
   o.rdy = rdy;
   o.ev = hunt_hit ? kEvHuntVerify : ver_done ? kEvVerifyLock
        : lock_ok ? kEvSyncOk : lose_lock ? kEvLoseLock
@@ -134,9 +164,10 @@ __device__ __forceinline__ int total_after(int t1, int k) {
 // Walk one tile: lane `lane` holds symbol (v, r, nrm) and gets its outputs
 // in o.  Between two events only sss and total move, so the walk jumps
 // from event to event.
-__device__ __forceinline__ void walk_tile(Carry& c, bool v, double r,
-                                          double nrm, const Params& p,
-                                          int lane, Out& o) {
+template <class R>
+__device__ __forceinline__ void walk_tile(Carry<R>& c, bool v, R r, R nrm,
+                                          const Params<R>& p, int lane,
+                                          Out<R>& o) {
   const unsigned vmask = __ballot_sync(kFull, v);
   const unsigned upto = (2u << lane) - 1u;  // lanes 0..lane
   const bool hunt_ok = r >= p.hunt_raw && nrm >= p.hunt_norm;
@@ -173,10 +204,10 @@ __device__ __forceinline__ void walk_tile(Carry& c, bool v, double r,
       return;
     }
     const int ke = __popc(live & ((2u << e) - 1u));
-    const double re = __shfl_sync(kFull, r, e);
-    const double ne = __shfl_sync(kFull, nrm, e);
-    const Out oe = step(c, add_wrap(c.sss, ke), total_after(t1, ke), re, ne,
-                        p);
+    const R re = __shfl_sync(kFull, r, e);
+    const R ne = __shfl_sync(kFull, nrm, e);
+    const Out<R> oe = step(c, add_wrap(c.sss, ke), total_after(t1, ke), re,
+                           ne, p);
     if (lane == e) o = oe;
     from = e + 1;
     if (from == kTile) return;
@@ -184,13 +215,15 @@ __device__ __forceinline__ void walk_tile(Carry& c, bool v, double r,
 }
 
 // The kernel's input: raw, norm and valid given, (C, S) contiguous.
+template <class R>
 struct GivenSync {
-  static constexpr int kSmem = 1;  // doubles of shared memory a warp
-  const double* raw;
-  const double* norm;
+  using Real = R;
+  static constexpr int kSmem = 1;  // reals of shared memory a warp
+  const R* raw;
+  const R* norm;
   const uint8_t* valid;
   struct Group {
-    double r[kGroup], n[kGroup];
+    R r[kGroup], n[kGroup];
     bool v[kGroup];
   };
   __device__ __forceinline__ void load(Group& g, int, long long row, int t0,
@@ -199,15 +232,14 @@ struct GivenSync {
     for (int j = 0; j < kGroup; ++j) {
       const int t = t0 + j * kTile + lane;
       const bool in = t < steps;
-      g.r[j] = in ? raw[row + t] : 0.0;
-      g.n[j] = in ? norm[row + t] : 0.0;
+      g.r[j] = in ? raw[row + t] : R(0);
+      g.n[j] = in ? norm[row + t] : R(0);
       g.v[j] = in && valid[row + t] != 0;
     }
   }
   // raw/norm of each tile of the group (nothing to compute)
-  __device__ __forceinline__ void prepare(const Group& g, double* r,
-                                          double* n, double*, long long,
-                                          int, int, int) const {
+  __device__ __forceinline__ void prepare(const Group& g, R* r, R* n, R*,
+                                          long long, int, int, int) const {
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       r[j] = g.r[j];
@@ -219,25 +251,27 @@ struct GivenSync {
 // The kernel's input: the soft stream soft_ext (C, 23 + S) at row stride
 // ld and valid (C, S); raw and norm computed here and stored to raw_out,
 // norm_out (C, S).
+template <class R>
 struct SoftSync {
+  using Real = R;
   static constexpr int kSmem = kGroupSyms + kTile;  // a group and its halo
-  const double* soft;
+  const R* soft;
   long long ld;
   const uint8_t* valid;
-  double* raw_out;
-  double* norm_out;
-  double min_energy;
+  R* raw_out;
+  R* norm_out;
+  R min_energy;
   struct Group {
-    double x[kGroup + 1];  // soft_ext[t0 + j * 32 + lane], j = 0..kGroup
+    R x[kGroup + 1];  // soft_ext[t0 + j * 32 + lane], j = 0..kGroup
     bool v[kGroup];
   };
   __device__ __forceinline__ void load(Group& g, int ch, long long row,
                                        int t0, int steps, int lane) const {
-    const double* srow = soft + ch * ld;
+    const R* srow = soft + ch * ld;
 #pragma unroll
     for (int j = 0; j <= kGroup; ++j) {
       const int i = t0 + j * kTile + lane;
-      g.x[j] = i < steps + kTaps - 1 ? srow[i] : 0.0;
+      g.x[j] = i < steps + kTaps - 1 ? srow[i] : R(0);
     }
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
@@ -248,31 +282,30 @@ struct SoftSync {
   // Each lane's symbol of each tile: raw and energy as the twin sums them
   // (tap 0 first, from +0.0), then normalized_sync's gate and division;
   // raw and norm stored for the symbols of the row.
-  __device__ __forceinline__ void prepare(const Group& g, double* r,
-                                          double* n, double* buf,
-                                          long long row, int t0, int steps,
-                                          int lane) const {
+  __device__ __forceinline__ void prepare(const Group& g, R* r, R* n,
+                                          R* buf, long long row, int t0,
+                                          int steps, int lane) const {
     __syncwarp();
 #pragma unroll
     for (int j = 0; j <= kGroup; ++j) buf[j * kTile + lane] = g.x[j];
     __syncwarp();
-    double e[kGroup];
+    R e[kGroup];
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) r[j] = e[j] = 0.0;
+    for (int j = 0; j < kGroup; ++j) r[j] = e[j] = R(0);
 #pragma unroll
     for (int i = 0; i < kTaps; ++i) {
       const bool neg = (kSyncWord >> (kTaps - 1 - i)) & 1u;
 #pragma unroll
       for (int j = 0; j < kGroup; ++j) {
-        const double w = buf[j * kTile + lane + i];
-        r[j] = neg ? __dsub_rn(r[j], w) : __dadd_rn(r[j], w);
-        e[j] = __dadd_rn(e[j], fabs(w));
+        const R w = buf[j * kTile + lane + i];
+        r[j] = neg ? sub(r[j], w) : add(r[j], w);
+        e[j] = add(e[j], mag(w));
       }
     }
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
-      n[j] = e[j] < min_energy ? 0.0
-           : __ddiv_rn(r[j], e[j] > 0.0 ? e[j] : 1.0);
+      n[j] = e[j] < min_energy ? R(0)
+           : quot(r[j], e[j] > R(0) ? e[j] : R(1));
       const int t = t0 + j * kTile + lane;
       if (t < steps) {
         raw_out[row + t] = r[j];
@@ -282,20 +315,20 @@ struct SoftSync {
   }
 };
 
-template <class In>
+template <class In, class R = typename In::Real>
 __global__ void __launch_bounds__(kTile)
-sync_scan_kernel(In in, int channels, int steps, Params p,
+sync_scan_kernel(In in, int channels, int steps, Params<R> p,
                  const int* __restrict__ ist_in,
-                 const double* __restrict__ q_in, int* __restrict__ ist_out,
-                 double* __restrict__ q_out, uint8_t* __restrict__ ready,
-                 double* __restrict__ q, int* __restrict__ events,
+                 const R* __restrict__ q_in, int* __restrict__ ist_out,
+                 R* __restrict__ q_out, uint8_t* __restrict__ ready,
+                 R* __restrict__ q, int* __restrict__ events,
                  int* __restrict__ ev_misses, int* __restrict__ ev_frames) {
-  __shared__ double buf[In::kSmem];
+  __shared__ R buf[In::kSmem];
   const int ch = blockIdx.x;
   const int lane = threadIdx.x;
   if (ch >= channels) return;
   const int* si = ist_in + ch * kIntWidth;
-  Carry c;
+  Carry<R> c;
   c.state = si[0];
   c.sss = si[1];
   c.misses = si[2];
@@ -310,13 +343,13 @@ sync_scan_kernel(In in, int channels, int steps, Params p,
     const typename In::Group cur = nxt;
     if (t0 + kGroupSyms < steps)
       in.load(nxt, ch, row, t0 + kGroupSyms, steps, lane);
-    double r[kGroup], n[kGroup];
+    R r[kGroup], n[kGroup];
     in.prepare(cur, r, n, buf, row, t0, steps, lane);
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       const int base = t0 + j * kTile;
       if (base >= steps) break;
-      Out o;
+      Out<R> o;
       walk_tile(c, cur.v[j], r[j], n[j], p, lane, o);
       const long long at = row + base + lane;
       if (base + lane < steps) {
@@ -340,19 +373,53 @@ sync_scan_kernel(In in, int channels, int steps, Params p,
   }
 }
 
-template <class In>
-int launch(const In& in, int channels, int steps, const Params& p,
+template <class In, class R = typename In::Real>
+int launch(const In& in, int channels, int steps, const Params<R>& p,
            const void* ist_in, const void* q_in, void* ist_out, void* q_out,
            void* ready, void* q, void* events, void* ev_misses,
            void* ev_frames, void* stream) {
   sync_scan_kernel<In><<<channels, kTile, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       in, channels, steps, p, static_cast<const int*>(ist_in),
-      static_cast<const double*>(q_in), static_cast<int*>(ist_out),
-      static_cast<double*>(q_out), static_cast<uint8_t*>(ready),
-      static_cast<double*>(q), static_cast<int*>(events),
+      static_cast<const R*>(q_in), static_cast<int*>(ist_out),
+      static_cast<R*>(q_out), static_cast<uint8_t*>(ready),
+      static_cast<R*>(q), static_cast<int*>(events),
       static_cast<int*>(ev_misses), static_cast<int*>(ev_frames));
   return (int)cudaGetLastError();
+}
+
+template <class R>
+int given(const void* raw, const void* norm, const void* valid, int channels,
+          int steps, const double* thresholds, const int* counts,
+          const void* ist_in, const void* q_in, void* ist_out, void* q_out,
+          void* ready, void* q, void* events, void* ev_misses,
+          void* ev_frames, void* stream) {
+  if (channels <= 0 || steps < 0) return (int)cudaErrorInvalidValue;
+  const GivenSync<R> in{static_cast<const R*>(raw),
+                        static_cast<const R*>(norm),
+                        static_cast<const uint8_t*>(valid)};
+  return launch(in, channels, steps, make_params<R>(thresholds, counts),
+                ist_in, q_in, ist_out, q_out, ready, q, events, ev_misses,
+                ev_frames, stream);
+}
+
+template <class R>
+int correlated(const void* soft_ext, long long ld, const void* valid,
+               int channels, int steps, const double* thresholds,
+               const int* counts, unsigned sync_word, const void* ist_in,
+               const void* q_in, void* ist_out, void* q_out, void* ready,
+               void* q, void* events, void* ev_misses, void* ev_frames,
+               void* raw_out, void* norm_out, void* stream) {
+  if (channels <= 0 || steps < 0 || counts[0] != kTaps ||
+      sync_word != kSyncWord || ld < steps + kTaps - 1)
+    return (int)cudaErrorInvalidValue;
+  const SoftSync<R> in{static_cast<const R*>(soft_ext), ld,
+                       static_cast<const uint8_t*>(valid),
+                       static_cast<R*>(raw_out), static_cast<R*>(norm_out),
+                       R(thresholds[3])};
+  return launch(in, channels, steps, make_params<R>(thresholds, counts),
+                ist_in, q_in, ist_out, q_out, ready, q, events, ev_misses,
+                ev_frames, stream);
 }
 
 }  // namespace
@@ -372,14 +439,9 @@ extern "C" int opv_sync_scan(const void* raw, const void* norm,
                              void* ist_out, void* q_out, void* ready, void* q,
                              void* events, void* ev_misses, void* ev_frames,
                              void* stream) {
-  if (channels <= 0 || steps < 0) return (int)cudaErrorInvalidValue;
-  const Params p{thresholds[0], thresholds[1], thresholds[2],
-                 counts[0], counts[1], counts[2], counts[3]};
-  const GivenSync in{static_cast<const double*>(raw),
-                     static_cast<const double*>(norm),
-                     static_cast<const uint8_t*>(valid)};
-  return launch(in, channels, steps, p, ist_in, q_in, ist_out, q_out, ready,
-                q, events, ev_misses, ev_frames, stream);
+  return given<double>(raw, norm, valid, channels, steps, thresholds, counts,
+                       ist_in, q_in, ist_out, q_out, ready, q, events,
+                       ev_misses, ev_frames, stream);
 }
 
 // SoftSync: soft_ext (channels, 23 + steps) float64 rows at a stride of
@@ -394,15 +456,36 @@ extern "C" int opv_sync_correlate_scan(
     const void* ist_in, const void* q_in, void* ist_out, void* q_out,
     void* ready, void* q, void* events, void* ev_misses, void* ev_frames,
     void* raw_out, void* norm_out, void* stream) {
-  if (channels <= 0 || steps < 0 || counts[0] != kTaps ||
-      sync_word != kSyncWord || ld < steps + kTaps - 1)
-    return (int)cudaErrorInvalidValue;
-  const Params p{thresholds[0], thresholds[1], thresholds[2],
-                 counts[0], counts[1], counts[2], counts[3]};
-  const SoftSync in{static_cast<const double*>(soft_ext), ld,
-                    static_cast<const uint8_t*>(valid),
-                    static_cast<double*>(raw_out),
-                    static_cast<double*>(norm_out), thresholds[3]};
-  return launch(in, channels, steps, p, ist_in, q_in, ist_out, q_out, ready,
-                q, events, ev_misses, ev_frames, stream);
+  return correlated<double>(soft_ext, ld, valid, channels, steps, thresholds,
+                            counts, sync_word, ist_in, q_in, ist_out, q_out,
+                            ready, q, events, ev_misses, ev_frames, raw_out,
+                            norm_out, stream);
+}
+
+// The float32 instantiations: every float64 array above float32 (raw,
+// norm, soft_ext, q_in, q_out, q, raw_out, norm_out), the same arguments
+// otherwise; the thresholds stay host doubles and are rounded to float32
+// here, once, as JAX rounds a Python float against a float32 array.
+extern "C" int opv_sync_scan_f32(const void* raw, const void* norm,
+                                 const void* valid, int channels, int steps,
+                                 const double* thresholds, const int* counts,
+                                 const void* ist_in, const void* q_in,
+                                 void* ist_out, void* q_out, void* ready,
+                                 void* q, void* events, void* ev_misses,
+                                 void* ev_frames, void* stream) {
+  return given<float>(raw, norm, valid, channels, steps, thresholds, counts,
+                      ist_in, q_in, ist_out, q_out, ready, q, events,
+                      ev_misses, ev_frames, stream);
+}
+
+extern "C" int opv_sync_correlate_scan_f32(
+    const void* soft_ext, long long ld, const void* valid, int channels,
+    int steps, const double* thresholds, const int* counts, unsigned sync_word,
+    const void* ist_in, const void* q_in, void* ist_out, void* q_out,
+    void* ready, void* q, void* events, void* ev_misses, void* ev_frames,
+    void* raw_out, void* norm_out, void* stream) {
+  return correlated<float>(soft_ext, ld, valid, channels, steps, thresholds,
+                           counts, sync_word, ist_in, q_in, ist_out, q_out,
+                           ready, q, events, ev_misses, ev_frames, raw_out,
+                           norm_out, stream);
 }

@@ -40,3 +40,21 @@ def iq_bytes_to_i16_pairs(buf: bytes | bytearray | memoryview,
     nb = (len(buf) // quantum) * quantum
     a = np.frombuffer(bytearray(memoryview(buf)[:nb]), dtype="<i2")
     return a.reshape(-1, channels, 2).transpose(1, 0, 2)
+
+
+def iq_bytes_to_f32_pairs(buf: bytes | bytearray | memoryview,
+                          channels: int = 1) -> np.ndarray:
+    """Interleaved int16 LE bytes -> (channels, N, 2) float32 IQ pairs, a
+    contiguous array (the framing of iq_bytes_to_i16_pairs, converted)."""
+    return np.ascontiguousarray(
+        iq_bytes_to_i16_pairs(buf, channels).astype(np.float32))
+
+
+def complex_to_iq_bytes(samples: np.ndarray) -> bytes:
+    """(N,) complex (already scaled to the int16 range) -> wire bytes:
+    each part truncated toward zero, as the reference's
+    static_cast<int16_t>, and saturated at the int16 rails."""
+    out = np.empty((len(samples), 2), dtype="<i2")
+    out[:, 0] = np.clip(np.trunc(samples.real), -32768, 32767).astype(np.int16)
+    out[:, 1] = np.clip(np.trunc(samples.imag), -32768, 32767).astype(np.int16)
+    return out.tobytes()

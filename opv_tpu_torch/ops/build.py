@@ -50,6 +50,9 @@ SIGNATURES = {
     "opv_track_symbols": ([_P, ctypes.c_longlong, _P, _P, _I, _I,
                            ctypes.POINTER(ctypes.c_double), _P, _P, _P, _P,
                            _P], _I),
+    "opv_track_symbols_f32": ([_P, ctypes.c_longlong, ctypes.c_longlong, _P,
+                               _P, _I, _I, ctypes.POINTER(ctypes.c_double),
+                               _P, _P, _P, _P, _P], _I),
     "opv_sync_scan": ([_P, _P, _P, _I, _I, ctypes.POINTER(ctypes.c_double),
                        ctypes.POINTER(_I), _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P], _I),
@@ -57,6 +60,13 @@ SIGNATURES = {
                                  ctypes.POINTER(ctypes.c_double),
                                  ctypes.POINTER(_I), ctypes.c_uint,
                                  *[_P] * 12], _I),
+    "opv_sync_scan_f32": ([_P, _P, _P, _I, _I, ctypes.POINTER(ctypes.c_double),
+                           ctypes.POINTER(_I), _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P], _I),
+    "opv_sync_correlate_scan_f32": ([_P, ctypes.c_longlong, _P, _I, _I,
+                                     ctypes.POINTER(ctypes.c_double),
+                                     ctypes.POINTER(_I), ctypes.c_uint,
+                                     *[_P] * 12], _I),
     "opv_error_string": ([_I], ctypes.c_char_p),
 }
 

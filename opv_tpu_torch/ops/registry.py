@@ -91,13 +91,16 @@ def sync_correlate_scan(soft_ext, valid, ints, sync_q):
 
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset (the soft stage
-    once per row type, the sync machine once per input)."""
+    once per row type, the sync machine once per input and precision, the
+    tracking loop once per precision; the float64 instantiations keep the
+    plain names)."""
     return {"viterbi_r4": _vit.viterbi_r4_cuda.launches,
             "viterbi_r2": _vit.viterbi_r2_cuda.launches,
             **{f"symbol_soft[{rows}]": n
                for rows, n in _soft.symbol_soft_cuda.launches.items()},
             "phase_track": _phase.phase_track_cuda.launches,
-            "track_symbols": _track.track_symbols_cuda.launches,
+            **{"track_symbols" if dt == "float64" else f"track_symbols[{dt}]": n
+               for dt, n in _track.track_symbols_cuda.launches.items()},
             **{f"sync_scan[{src}]": n
                for src, n in _sync.sync_scan_cuda.launches.items()}}
 
@@ -106,7 +109,8 @@ def reset_launch_counts() -> None:
     _vit.viterbi_r4_cuda.launches = 0
     _vit.viterbi_r2_cuda.launches = 0
     _phase.phase_track_cuda.launches = 0
-    _track.track_symbols_cuda.launches = 0
+    for dt in _track.track_symbols_cuda.launches:
+        _track.track_symbols_cuda.launches[dt] = 0
     for rows in _soft.symbol_soft_cuda.launches:
         _soft.symbol_soft_cuda.launches[rows] = 0
     for src in _sync.sync_scan_cuda.launches:

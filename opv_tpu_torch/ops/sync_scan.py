@@ -20,12 +20,18 @@ input stage), each counted on its own.  Every output is an integer, a copy
 of an input, or the twin's float64 adds and division in the twin's order,
 so the kernel and the twins agree bit for bit.  The twin walks each
 channel's symbols over Python ints and floats.
+
+Both contracts hold in float32 too (raw, norm, soft_ext, sync_q and q
+float32, the JAX package's dtype="float32" mode): the thresholds are then
+rounded to float32 once, as a Python float is against a float32 array in
+JAX, and the kernel is its float32 instantiation, counted on its own.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from opv_tpu_torch.config import CONFIG
@@ -40,9 +46,17 @@ INT_WIDTH = 6
 _TOTAL_CAP = 1 << 30
 
 
-def _thresholds():
-    return (CONFIG.sync_hunt_norm_thresh, CONFIG.sync_locked_norm_thresh,
-            CONFIG.sync_hunt_raw_thresh)
+_REALS = (torch.float64, torch.float32)
+
+
+def _thresholds(dtype=torch.float64):
+    """(hunt norm, locked norm, hunt raw), rounded to float32 for a
+    float32 machine (0.7 becomes 0.699999988...)."""
+    thr = (CONFIG.sync_hunt_norm_thresh, CONFIG.sync_locked_norm_thresh,
+           CONFIG.sync_hunt_raw_thresh)
+    if dtype == torch.float32:
+        return tuple(float(np.float32(t)) for t in thr)
+    return thr
 
 
 def _counts():
@@ -57,15 +71,21 @@ def _i32(x: int) -> int:
 
 def _check(raw, norm, valid, ints, sync_q):
     c, s = raw.shape
-    if raw.dtype != torch.float64 or norm.dtype != torch.float64 \
+    if raw.dtype not in _REALS or norm.dtype != raw.dtype \
             or norm.shape != (c, s) or valid.shape != (c, s):
-        raise ValueError(f"raw/norm must be (C, S) float64 and valid (C, S), "
-                         f"got {tuple(raw.shape)} {raw.dtype}, "
-                         f"{tuple(norm.shape)} {norm.dtype}, "
+        raise ValueError(f"raw/norm must be (C, S) float64 or float32 alike "
+                         f"and valid (C, S), got {tuple(raw.shape)} "
+                         f"{raw.dtype}, {tuple(norm.shape)} {norm.dtype}, "
                          f"{tuple(valid.shape)}")
-    if ints.shape != (c, INT_WIDTH) or sync_q.shape != (c,):
-        raise ValueError(f"ints must be ({c}, {INT_WIDTH}) and sync_q ({c},), "
-                         f"got {tuple(ints.shape)}, {tuple(sync_q.shape)}")
+    _check_carry(ints, sync_q, c, raw.dtype)
+
+
+def _check_carry(ints, sync_q, c, dtype):
+    if ints.shape != (c, INT_WIDTH) or sync_q.shape != (c,) \
+            or sync_q.dtype != dtype:
+        raise ValueError(f"ints must be ({c}, {INT_WIDTH}) and sync_q ({c},) "
+                         f"{dtype}, got {tuple(ints.shape)}, "
+                         f"{tuple(sync_q.shape)} {sync_q.dtype}")
 
 
 def sync_scan_reference(raw: torch.Tensor, norm: torch.Tensor,
@@ -74,7 +94,7 @@ def sync_scan_reference(raw: torch.Tensor, norm: torch.Tensor,
     """The plain twin (CPU): each channel's symbols in order, over Python
     ints and floats."""
     _check(raw, norm, valid, ints, sync_q)
-    hunt_norm, locked_norm, hunt_raw = _thresholds()
+    hunt_norm, locked_norm, hunt_raw = _thresholds(raw.dtype)
     sync_bits, eb, fs, miss_limit = _counts()
     c, s = raw.shape
     out_ready, out_q, out_ev, out_m, out_f = [], [], [], [], []
@@ -125,27 +145,25 @@ def sync_scan_reference(raw: torch.Tensor, norm: torch.Tensor,
         q_out.append(sq)
     dev = raw.device
     i32 = dict(dtype=torch.int32, device=dev)
-    f64 = dict(dtype=torch.float64, device=dev)
+    real = dict(dtype=raw.dtype, device=dev)
     return (torch.tensor(st_out, **i32).reshape(c, INT_WIDTH),
-            torch.tensor(q_out, **f64).reshape(c),
+            torch.tensor(q_out, **real).reshape(c),
             torch.tensor(out_ready, dtype=torch.bool, device=dev).reshape(c, s),
-            torch.tensor(out_q, **f64).reshape(c, s),
+            torch.tensor(out_q, **real).reshape(c, s),
             torch.tensor(out_ev, **i32).reshape(c, s),
             torch.tensor(out_m, **i32).reshape(c, s),
             torch.tensor(out_f, **i32).reshape(c, s))
 
 
 def _check_soft(soft_ext, valid, ints, sync_q):
-    if soft_ext.dim() != 2 or soft_ext.dtype != torch.float64 \
+    if soft_ext.dim() != 2 or soft_ext.dtype not in _REALS \
             or soft_ext.shape[1] < CONFIG.sync_bits - 1:
-        raise ValueError(f"soft_ext must be (C, 23 + S) float64, got "
-                         f"{tuple(soft_ext.shape)} {soft_ext.dtype}")
+        raise ValueError(f"soft_ext must be (C, 23 + S) float64 or float32, "
+                         f"got {tuple(soft_ext.shape)} {soft_ext.dtype}")
     c, s = soft_ext.shape[0], soft_ext.shape[1] - (CONFIG.sync_bits - 1)
     if valid.shape != (c, s):
         raise ValueError(f"valid must be ({c}, {s}), got {tuple(valid.shape)}")
-    if ints.shape != (c, INT_WIDTH) or sync_q.shape != (c,):
-        raise ValueError(f"ints must be ({c}, {INT_WIDTH}) and sync_q ({c},), "
-                         f"got {tuple(ints.shape)}, {tuple(sync_q.shape)}")
+    _check_carry(ints, sync_q, c, soft_ext.dtype)
 
 
 def sync_correlate_scan_reference(soft_ext: torch.Tensor, valid: torch.Tensor,
@@ -162,10 +180,10 @@ def _state_outputs(ints, sync_q, shape):
     allocated on ints' device."""
     dev = ints.device
     ints = ints.to(dtype=torch.int32).contiguous()
-    sync_q = sync_q.to(device=dev, dtype=torch.float64).contiguous()
+    sync_q = sync_q.to(device=dev).contiguous()
     outs = (torch.empty_like(ints), torch.empty_like(sync_q),
             torch.empty(shape, dtype=torch.bool, device=dev),
-            torch.empty(shape, dtype=torch.float64, device=dev),
+            torch.empty(shape, dtype=sync_q.dtype, device=dev),
             *(torch.empty(shape, dtype=torch.int32, device=dev)
               for _ in range(3)))
     return ints, sync_q, outs
@@ -184,7 +202,9 @@ def launch(lib, raw, norm, valid, ints, sync_q):
     if c:
         thr = (ctypes.c_double * 3)(*_thresholds())
         cnt = (ctypes.c_int * 4)(*_counts())
-        err = lib.opv_sync_scan(
+        fn = lib.opv_sync_scan_f32 if raw.dtype == torch.float32 \
+            else lib.opv_sync_scan
+        err = fn(
             raw.data_ptr(), norm.data_ptr(), valid.data_ptr(), c, s, thr, cnt,
             ints.data_ptr(), sync_q.data_ptr(), *(t.data_ptr() for t in outs),
             build.stream_ptr(raw))
@@ -205,12 +225,14 @@ def launch_soft(lib, soft_ext, valid, ints, sync_q):
     ld = soft_ext.stride(0) if c > 1 else n
     valid = valid.to(device=dev, dtype=torch.bool).contiguous()
     ints, sync_q, outs = _state_outputs(ints.to(dev), sync_q, (c, s))
-    raw, norm = (torch.empty((c, s), dtype=torch.float64, device=dev)
+    raw, norm = (torch.empty((c, s), dtype=soft_ext.dtype, device=dev)
                  for _ in range(2))
     if c:
         thr = (ctypes.c_double * 4)(*_thresholds(), CONFIG.sync_min_energy)
         cnt = (ctypes.c_int * 4)(*_counts())
-        err = lib.opv_sync_correlate_scan(
+        fn = lib.opv_sync_correlate_scan_f32 \
+            if soft_ext.dtype == torch.float32 else lib.opv_sync_correlate_scan
+        err = fn(
             soft_ext.data_ptr(), ld, valid.data_ptr(), c, s, thr, cnt,
             CONFIG.sync_word, ints.data_ptr(), sync_q.data_ptr(),
             *(t.data_ptr() for t in outs), raw.data_ptr(), norm.data_ptr(),
@@ -228,7 +250,7 @@ def sync_scan_cuda(raw: torch.Tensor, norm: torch.Tensor, valid: torch.Tensor,
     _check(raw, norm, valid, ints, sync_q)
     out = launch(build.library(), raw, norm, valid, ints, sync_q)
     if raw.shape[0]:
-        sync_scan_cuda.launches["GivenSync"] += 1
+        sync_scan_cuda.launches[_key("GivenSync", raw.dtype)] += 1
     return out
 
 
@@ -241,9 +263,16 @@ def sync_correlate_scan_cuda(soft_ext: torch.Tensor, valid: torch.Tensor,
     _check_soft(soft_ext, valid, ints, sync_q)
     out = launch_soft(build.library(), soft_ext, valid, ints, sync_q)
     if soft_ext.shape[0]:
-        sync_scan_cuda.launches["SoftSync"] += 1
+        sync_scan_cuda.launches[_key("SoftSync", soft_ext.dtype)] += 1
     return out
 
 
-#: launches per input (one kernel template, two instantiations)
-sync_scan_cuda.launches = {"GivenSync": 0, "SoftSync": 0}
+def _key(src: str, dtype) -> str:
+    """The launch counter of an instantiation: the input, and float32."""
+    return f"{src},float32" if dtype == torch.float32 else src
+
+
+#: launches per input and precision (one kernel template, four
+#: instantiations)
+sync_scan_cuda.launches = {"GivenSync": 0, "SoftSync": 0,
+                           "GivenSync,float32": 0, "SoftSync,float32": 0}

@@ -7,7 +7,8 @@ dense_soft evaluates the locked-grid tone correlation at all 40 sample
 phases with one real (C, M+1, 80) x (C, 80, 40*8) contraction; dense_sync
 correlates the 24-symbol sync pattern against that stream at dilation 40
 as 24 shifted, scaled adds in exact float32 (no convolution library, so no
-TF32 on the card).  detect_frames keeps the first max_frames qualifying
+TF32 on the card).  complex128 samples run every stage in float64, as the
+JAX package computes them.  detect_frames keeps the first max_frames qualifying
 sync peaks of each channel by a cumulative count on the device, so a block
 runs from samples to decoded frames without a host round trip; the
 Viterbi is one launch over every (channel, slot) payload."""
@@ -71,27 +72,34 @@ def combine(ab: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     return p[..., 1] - p[..., 0]
 
 
-def require_single_precision(samples: torch.Tensor, where: str) -> None:
-    """Refuse float64 / complex128 samples.  The JAX package computes such
-    input in float64 end to end; the port has only the float32 path, and a
-    silently narrowed result would be a different result."""
-    if samples.dtype in (torch.complex128, torch.float64):
-        raise ValueError(
-            f"{where}: {samples.dtype} samples need the float64 receiver "
-            "path, which the port does not have yet (ROADMAP queue 1, item "
-            "11); convert the input to complex64 (or float32 pairs) first")
+def double_precision(samples: torch.Tensor) -> bool:
+    """complex128 samples (or float64 pairs or rows) take the float64 path,
+    as the JAX package computes them."""
+    return samples.dtype in (torch.complex128, torch.float64)
+
+
+def tone_vectors_f64(incs: torch.Tensor) -> torch.Tensor:
+    """(C, 2) float32 increments -> (C, 40, 2) complex128 e^{-j inc t},
+    the phases taken in float64 from the float32 increments (the JAX
+    package's dense correlator on complex128)."""
+    inc = incs.to(torch.float64)
+    t = torch.arange(_SPS, dtype=torch.float64, device=inc.device)
+    ph = inc[:, None, :] * t[None, :, None]
+    return torch.complex(torch.cos(ph), -torch.sin(ph))
 
 
 def dense_soft(samples: torch.Tensor, freq_offset: torch.Tensor,
                stride: int = 1) -> torch.Tensor:
     """(C, N) complex64 -> soft decision at every `stride`-th sample offset,
-    (C, (N-40)//stride + 1); position u is sample offset stride*u."""
-    require_single_precision(samples, "dense_soft")
+    (C, (N-40)//stride + 1); position u is sample offset stride*u.
+    complex128 samples give float64 soft values."""
     c, n = samples.shape
     m2 = -(-n // _SPS)
     x = F.pad(torch.view_as_real(samples), (0, 0, 0, (m2 + 1) * _SPS - n))
     sym_f = x.reshape(c, m2 + 1, 2 * _SPS)
     e, incs = tone_vectors(freq_offset)                     # (C, 40, 2)
+    if double_precision(samples):
+        e, incs = tone_vectors_f64(incs), incs.to(torch.float64)
     ar = torch.arange(_SPS, device=samples.device)
     mask_a = (ar[:, None] >= ar[None, :])[None, :, :, None]     # (1, t, r, 1)
     ea = e[:, :, None, :]
@@ -200,7 +208,7 @@ def extract_payloads_dense(soft: torch.Tensor, starts: torch.Tensor):
 def rx_fast(samples: torch.Tensor, freq_offset=None, max_frames: int = 8,
             estimate_cfo_flag: bool = True) -> dict:
     """The feed-forward pipeline: (C, N) complex64 IQ -> decoded frames, on
-    the samples' device.
+    the samples' device (complex128 IQ in float64 throughout).
 
     Arbitrary symbol timing and frame positions (dense correlation), one
     CFO per channel and block (the grid estimate, or freq_offset (C,) Hz,
@@ -215,7 +223,6 @@ def rx_fast(samples: torch.Tensor, freq_offset=None, max_frames: int = 8,
         raise ValueError(
             f"rx_fast needs at least one full frame of samples ({min_n}), "
             f"got {n}; short captures cannot contain a decodable frame")
-    require_single_precision(samples, "rx_fast")
     if freq_offset is None:
         if estimate_cfo_flag:
             freq_offset = estimate_cfo_batch(samples).to(torch.float32)

@@ -20,8 +20,10 @@ phase r = p0 mod 40.  The receiver therefore splits into:
 `samples` is (C, N) complex64, (C, N, 2) float I/Q pairs, or (C, M, 80)
 window rows (row s = samples [40s, 40s+40) as interleaved I/Q) in float32
 or int8 (values = wire samples / INT8_SCALE, or / a per-channel `scale`).
-complex128 / float64 samples raise ValueError: the JAX package computes
-them in float64, a path the port does not have.
+complex128 samples (and float64 pairs or rows) run in float64, as the JAX
+package computes them: the soft stage's float64 instantiation, the dense
+correlator, the sync correlations and the timing fold; the CFO stays the
+float32 of the JAX package's grid and refinement.
 """
 
 from __future__ import annotations
@@ -36,9 +38,8 @@ from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.core.framing import device_table
 from opv_tpu_torch.ops import registry
 from opv_tpu_torch.rx.cfo import estimate_cfo_batch
-from opv_tpu_torch.rx.fast import (dense_soft, dense_sync, phase_rot,
-                                   real_columns, require_single_precision,
-                                   tone_vectors)
+from opv_tpu_torch.rx.fast import (dense_soft, dense_sync, double_precision,
+                                   phase_rot, real_columns, tone_vectors)
 from opv_tpu_torch.rx.frame_decoder import decode_payloads
 from opv_tpu_torch.rx.sync import normalized_sync, sync_pattern
 
@@ -128,13 +129,16 @@ def hunt_grid(raw: torch.Tensor, norm: torch.Tensor, stride: int = 1):
 
 def _window_rows_of(samples: torch.Tensor, nsym: int) -> torch.Tensor:
     """(C, M, 80) rows covering symbols 0..nsym from any accepted input
-    form; a view (no copy) for complex64, pairs and window rows."""
+    form; a view (no copy) for complex64 and complex128, pairs and window
+    rows."""
     c = samples.shape[0]
     if samples.dim() == 3 and samples.shape[-1] == 2 * _SPS:
         return samples
     if samples.dim() == 3:                                    # (C, N, 2)
         return samples[:, : (nsym + 1) * _SPS].reshape(c, nsym + 1, 2 * _SPS)
-    win = samples[:, : (nsym + 1) * _SPS].to(torch.complex64)
+    win = samples[:, : (nsym + 1) * _SPS]
+    if win.dtype != torch.complex128:
+        win = win.to(torch.complex64)
     return torch.view_as_real(win).reshape(c, nsym + 1, 2 * _SPS)
 
 
@@ -144,23 +148,28 @@ def soft_stage_operands(samples: torch.Tensor, r: torch.Tensor,
     """The soft stage's operands (rows, kern, resc, phi) in the contract of
     ops/symbol_soft.py, built in plain torch: the per-channel tone vectors,
     the tail mask at phase r with the `frac` blend, and the int8 kernel
-    round(k*127) with its rescale for int8 rows."""
+    round(k*127) with its rescale for int8 rows.  complex128 samples (or
+    float64 pairs or rows) give float64 operands throughout, the tone
+    vectors and phi taken from their float32 values, as the JAX package's
+    real_dt/cplx_dt build them."""
     c = samples.shape[0]
     dev = samples.device
+    real = torch.float64 if double_precision(samples) else torch.float32
     e, incs = tone_vectors(freq_offset)                        # (C, 40, 2)
+    e = e.to(torch.complex128 if real == torch.float64 else torch.complex64)
     t_idx = torch.arange(_SPS, device=dev)[None, :]
     rr = r.to(torch.int64)[:, None]
     if frac is None:
-        tail_w = (t_idx >= rr).to(torch.float32)
+        tail_w = (t_idx >= rr).to(real)
     else:
-        f = frac.to(torch.float32)[:, None]
+        f = frac.to(real)[:, None]
         tail_w = torch.where(t_idx > rr, torch.ones_like(f),
                              torch.where(t_idx == rr, 1.0 - f,
                                          torch.zeros_like(f)))
     tail_w = tail_w[:, :, None]
     kern = real_columns(torch.cat([tail_w * e, (1.0 - tail_w) * e], dim=-1))
     rows = _window_rows_of(samples, nsym)
-    phi = torch.view_as_real(phase_rot(incs)).contiguous()      # (C, 2, 2)
+    phi = torch.view_as_real(phase_rot(incs)).to(real).contiguous()  # (C, 2, 2)
     if rows.dtype == torch.int8:
         kern = torch.round(kern * 127.0).to(torch.int8)
         if scale is None:
@@ -173,8 +182,8 @@ def soft_stage_operands(samples: torch.Tensor, r: torch.Tensor,
             # sums in float32; the products of two narrowed values are
             # exact in float32, so widening both gives the same dot
             kern = kern.to(rows.dtype).to(torch.float32)
-        rows = rows.to(torch.float32)
-        resc = torch.ones((c,), dtype=torch.float32, device=dev)
+        rows = rows.to(real)
+        resc = torch.ones((c,), dtype=real, device=dev)
     return rows, kern.contiguous(), resc.contiguous(), phi
 
 
@@ -253,7 +262,6 @@ def rx_locked_steady(samples: torch.Tensor, p0: torch.Tensor,
     """Steady-state hot loop with the grid (p0, frac) and CFO known: blocks
     that advance by whole frame intervals keep p0.  Returns the same dict
     as rx_locked."""
-    require_single_precision(samples, "rx_locked_steady")
     return _locked_body(samples, p0, freq_offset, n_frames, scale, frac)
 
 
@@ -358,7 +366,8 @@ def rx_locked_reacquire_strided(samples: torch.Tensor, p0_old: torch.Tensor,
 
 def rx_locked(samples: torch.Tensor, n_frames: int, freq_offset=None,
               estimate_cfo_flag: bool = True):
-    """(C, N) complex64 -> n_frames decoded frames per channel.
+    """(C, N) complex64 (or complex128, in float64) -> n_frames decoded
+    frames per channel.
 
     N must cover p0 + n_frames full frames.  Returns dict with frames
     (C, F, 134) uint8, metrics (C, F) int32, frame_valid / decode_ok (C, F)
@@ -431,7 +440,8 @@ def refine_cfo_locked(samples: torch.Tensor, p0: torch.Tensor,
     pm = p.amax(-1)
     w = same * torch.minimum(pm[:, 1:], pm[:, :-1])
     ang = torch.atan2((pair.imag * w).sum(-1), (pair.real * w).sum(-1))
-    df = ang * np.float32(CONFIG.sample_rate / (_TWO_PI * _SPS))
+    k = CONFIG.sample_rate / (_TWO_PI * _SPS)
+    df = ang * (np.float32(k) if ang.dtype == torch.float32 else k)
     df = torch.clamp(df, -CONFIG.afc_clamp_hz, CONFIG.afc_clamp_hz)
     return (freq_offset + df).to(torch.float32)
 
@@ -452,8 +462,9 @@ def _fold_est(fold: torch.Tensor) -> torch.Tensor:
     ok = denom.abs() > 1e-30
     safe = torch.where(ok, denom, torch.ones_like(denom))
     delta = torch.where(ok, 0.5 * (rm - rp) / safe, torch.zeros_like(denom))
+    bias = np.float32(_PB_BIAS) if delta.dtype == torch.float32 else _PB_BIAS
     delta = torch.where(pk == 0, torch.zeros_like(delta),
-                        torch.clamp(delta, -0.5, 0.5) - np.float32(_PB_BIAS))
+                        torch.clamp(delta, -0.5, 0.5) - bias)
     return pk.to(torch.float32) + delta + 0.5
 
 

@@ -20,9 +20,9 @@ from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.rx.cfo import estimate_cfo
 from opv_tpu_torch.rx.coherent import (coherent_state_init,
                                        demodulate_coherent, pll_gains)
-from opv_tpu_torch.rx.demod import (LoopState, demodulate_block,
-                                    loop_state_init, max_symbols,
-                                    require_float64)
+from opv_tpu_torch.rx.demod import (LoopState, complex_dtype,
+                                    demodulate_block, loop_state_init,
+                                    max_symbols, real_dtype)
 from opv_tpu_torch.rx.frame_decoder import decode_payloads
 from opv_tpu_torch.rx.sync import (SyncTrackerState, extract_payload_windows,
                                    sync_correlate_scan, sync_tracker_init)
@@ -63,8 +63,9 @@ def rx_block(samples: torch.Tensor, n_valid, lstate: LoopState,
              tstate: SyncTrackerState, hist: torch.Tensor, max_frames: int,
              afc_alpha=None, with_events: bool = False):
     """Demod + sync + decode one fixed-capacity block of IQ per channel
-    ((C, CAP) complex128, (C,) n_valid).  Returns (out dict, lstate,
-    tstate, hist); out["samples_used"] is (C,) int32.  with_events adds
+    ((C, CAP) complex128, or complex64 for the float32 loop; (C,)
+    n_valid).  Returns (out dict, lstate, tstate, hist);
+    out["samples_used"] is (C,) int32.  with_events adds
     the per-symbol sync-lifecycle streams (events, ev_misses, ev_frames,
     sync_raw, sync_norm) for the reference's transition diagnostics
     (src/opv-demod.cpp:651-706)."""
@@ -85,28 +86,27 @@ def rx_batch(samples, init_offset: float | None = None,
     coarse CFO grid search runs first (opv-demod.cpp:1166).  coherent=True
     runs the Costas-loop demodulator (rx/coherent.py, loop bandwidth pll_bw
     Hz; it decodes nothing in the reference either) in place of the
-    tracking loop; dtype="float32" is ROADMAP item 11b.  Runs on `device`
-    ("cuda" by default; "cpu" runs the plain twins).  Returns opv_tpu's
-    result dict as numpy, with only the valid frame slots kept in
-    frames/metrics/sync_q/t_idx.
+    tracking loop.  dtype: "float64" (the reference's precision) or
+    "float32" (the samples as complex64, every stage in float32, as
+    opv_tpu's float32 mode).  Runs on `device` ("cuda" by default; "cpu"
+    runs the plain twins).  Returns opv_tpu's result dict as numpy, with
+    only the valid frame slots kept in frames/metrics/sync_q/t_idx.
     """
-    require_float64(dtype)
+    real = real_dtype(dtype)
     dev = torch.device(device)
     x = torch.as_tensor(np.asarray(samples) if not torch.is_tensor(samples)
-                        else samples).to(dev, torch.complex128)
+                        else samples).to(dev, complex_dtype(real))
     n = x.shape[0]
     if init_offset is None:
-        offset = estimate_cfo(x).reshape(1)
+        offset = estimate_cfo(x).reshape(1).to(real)
     else:
-        offset = torch.full((1,), float(init_offset), dtype=torch.float64,
-                            device=dev)
-    tstate = sync_tracker_init(channels=1, device=dev)
-    hist = torch.zeros((1, CONFIG.encoded_bits), dtype=torch.float64,
-                       device=dev)
+        offset = torch.full((1,), float(init_offset), dtype=real, device=dev)
+    tstate = sync_tracker_init(channels=1, device=dev, dtype=real)
+    hist = torch.zeros((1, CONFIG.encoded_bits), dtype=real, device=dev)
     if coherent:
         soft, cstate = demodulate_coherent(
-            x, coherent_state_init(offset[0], device=dev), afc_alpha,
-            *pll_gains(pll_bw))
+            x, coherent_state_init(offset[0], dtype=real, device=dev),
+            afc_alpha, *pll_gains(pll_bw))
         max_frames = max_symbols(n) // CONFIG.frame_symbols + 2
         out, tstate2, _ = rx_block_from_soft(
             soft[None], torch.ones((1, soft.shape[0]), dtype=torch.bool,
@@ -119,7 +119,7 @@ def rx_batch(samples, init_offset: float | None = None,
         # long
         buf = x if n >= 64 else torch.cat([x, x.new_zeros(64 - n)])
         max_frames = max_symbols(buf.shape[0]) // CONFIG.frame_symbols + 2
-        lstate = loop_state_init(offset, channels=1, device=dev)
+        lstate = loop_state_init(offset, channels=1, device=dev, dtype=real)
         out, lstate2, tstate2, _ = rx_block(
             buf[None], torch.tensor([n], dtype=torch.int32, device=dev),
             lstate, tstate, hist, max_frames, afc_alpha=afc_alpha)

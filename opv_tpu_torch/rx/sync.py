@@ -48,22 +48,23 @@ class SyncTrackerState(NamedTuple):
     state: torch.Tensor       # int32: 0 HUNT / 1 VERIFY / 2 LOCKED
     sss: torch.Tensor         # int32 symbols_since_sync
     misses: torch.Tensor      # int32 consecutive sync misses
-    sync_q: torch.Tensor      # float64 sync quality at the last detection
+    sync_q: torch.Tensor      # float sync quality at the last detection
     collecting: torch.Tensor  # bool
     total: torch.Tensor       # int32 symbols seen, saturating at 2^30
     frames: torch.Tensor      # int32 frames emitted
 
 
-def sync_tracker_init(channels: int | None = None,
-                      device="cpu") -> SyncTrackerState:
-    """HUNTING, zeros; (channels,) tensors, or 0-d ones (a single channel,
+def sync_tracker_init(channels: int | None = None, device="cpu",
+                      dtype=torch.float64) -> SyncTrackerState:
+    """HUNTING, zeros, sync_q of the real dtype (float64 or float32, the
+    soft stream's); (channels,) tensors, or 0-d ones (a single channel,
     the JAX layout) when channels is None."""
     shape = () if channels is None else (channels,)
     i32 = dict(dtype=torch.int32, device=device)
     return SyncTrackerState(
         state=torch.zeros(shape, **i32), sss=torch.zeros(shape, **i32),
         misses=torch.zeros(shape, **i32),
-        sync_q=torch.zeros(shape, dtype=torch.float64, device=device),
+        sync_q=torch.zeros(shape, dtype=dtype, device=device),
         collecting=torch.zeros(shape, dtype=torch.bool, device=device),
         total=torch.zeros(shape, **i32), frames=torch.zeros(shape, **i32))
 
@@ -103,15 +104,15 @@ def sync_scan(state: SyncTrackerState, raw: torch.Tensor, norm: torch.Tensor,
     # imported here: ops/ imports this module
     from opv_tpu_torch.ops import registry
     ints2, q2, ready, q, events, ev_misses, ev_frames = registry.sync_scan(
-        raw, norm, valid, *_carry(state, raw.device))
+        raw, norm, valid, *_carry(state, raw))
     return (_tracker(ints2, q2), ready, q, events, ev_misses, ev_frames)
 
 
 def sync_correlate_scan(state: SyncTrackerState, soft_ext: torch.Tensor,
                         valid: torch.Tensor):
     """sync_correlate, then sync_scan, in one: soft_ext (C, 23 + S) soft
-    symbols (23 of history first; any row stride, e.g. the view
-    soft_cat[:, eb - 23:]), valid (C, S).
+    symbols, float64 or float32 (23 of history first; any row stride,
+    e.g. the view soft_cat[:, eb - 23:]), valid (C, S).
 
     Returns (new_state, raw, norm, ready, q, events, ev_misses,
     ev_frames), each as the two functions give it.  Through
@@ -122,17 +123,18 @@ def sync_correlate_scan(state: SyncTrackerState, soft_ext: torch.Tensor,
     from opv_tpu_torch.ops import registry
     (ints2, q2, ready, q, events, ev_misses, ev_frames, raw,
      norm) = registry.sync_correlate_scan(soft_ext, valid,
-                                          *_carry(state, soft_ext.device))
+                                          *_carry(state, soft_ext))
     return (_tracker(ints2, q2), raw, norm, ready, q, events, ev_misses,
             ev_frames)
 
 
-def _carry(state: SyncTrackerState, dev):
-    """The state as the kernel's (C, 6) int32 carry and (C,) sync_q."""
+def _carry(state: SyncTrackerState, like: torch.Tensor):
+    """The state as the kernel's (C, 6) int32 carry and (C,) sync_q, on
+    like's device and in its real dtype."""
     ints = torch.stack([state.state, state.sss, state.misses,
                         state.collecting.to(torch.int32), state.total,
                         state.frames], -1).to(torch.int32)
-    return ints.to(dev), state.sync_q.to(device=dev, dtype=torch.float64)
+    return ints.to(like.device), state.sync_q.to(like.device, like.dtype)
 
 
 def _tracker(ints: torch.Tensor, sync_q: torch.Tensor) -> SyncTrackerState:

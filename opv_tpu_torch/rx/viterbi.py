@@ -71,6 +71,17 @@ def _best(metrics):
     return best, metrics.gather(1, best[:, None])[:, 0]
 
 
+def viterbi_decode(soft: torch.Tensor):
+    """Decode one frame: (2144,) int soft symbols -> (bits (1072,) uint8,
+    path metric 0-d int32), a batch of one through
+    ops/registry.py::viterbi_batch (the Viterbi kernel on a CUDA tensor,
+    its twin on a CPU tensor)."""
+    from opv_tpu_torch.ops import registry   # ops/ imports this module
+    soft = torch.as_tensor(soft)
+    bits, metric = registry.viterbi_batch(soft.reshape(1, -1))
+    return bits[0], metric[0]
+
+
 def viterbi_decode_batch(soft: torch.Tensor):
     """Radix-2 oracle: (B, 2144) int soft symbols (deinterleaved, (g1, g2)
     per trellis step) -> (bits (B, 1072) uint8, metrics (B,) int32)."""

@@ -19,7 +19,7 @@ import torch
 from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.rx.cfo import estimate_cfo
 from opv_tpu_torch.rx.demod import (LoopState, loop_state_init, max_symbols,
-                                    require_float64)
+                                    real_dtype)
 from opv_tpu_torch.rx.pipeline import rx_block
 from opv_tpu_torch.rx.sync import SyncTrackerState, sync_tracker_init
 
@@ -43,8 +43,10 @@ class StreamingDemodulator:
         callback fired per sync-lifecycle transition (rx.sync.EV_* codes),
         the reference's stderr diagnostics (src/opv-demod.cpp:651-706).
         device: where the chunks run ("cuda" by default; "cpu" runs the
-        plain twins)."""
-        require_float64(dtype)
+        plain twins).  dtype: "float64" (the reference's precision) or
+        "float32" (a complex64 buffer and every stage in float32, as
+        opv_tpu's float32 mode)."""
+        self.real = real_dtype(dtype)
         self.device = torch.device(device)
         self.chunk = chunk_samples or CONFIG.chunk_samples
         self.cap = self.chunk          # the buffer is always <= one chunk
@@ -52,15 +54,18 @@ class StreamingDemodulator:
         self.max_frames = max_symbols(self.cap) // CONFIG.frame_symbols + 2
         self.on_event = on_event
 
-        self._buf = np.zeros(self.cap, dtype=np.complex128)
+        self._cdtype = np.complex128 if dtype == "float64" else np.complex64
+        self._buf = np.zeros(self.cap, dtype=self._cdtype)
         self._count = 0
         self._first = True
         self._init_offset = init_offset
 
         dev = self.device
-        self._lstate = loop_state_init(0.0, channels=1, device=dev)
-        self._tstate = sync_tracker_init(channels=1, device=dev)
-        self._hist = torch.zeros((1, CONFIG.encoded_bits), dtype=torch.float64,
+        self._lstate = loop_state_init(0.0, channels=1, device=dev,
+                                       dtype=self.real)
+        self._tstate = sync_tracker_init(channels=1, device=dev,
+                                         dtype=self.real)
+        self._hist = torch.zeros((1, CONFIG.encoded_bits), dtype=self.real,
                                  device=dev)
 
         self.total_samples = 0
@@ -76,7 +81,7 @@ class StreamingDemodulator:
         metric, sync_q, sym_idx) for every decoded frame."""
         if torch.is_tensor(samples):
             samples = samples.cpu().numpy()
-        samples = np.asarray(samples, dtype=np.complex128).reshape(-1)
+        samples = np.asarray(samples, dtype=self._cdtype).reshape(-1)
         off = 0
         results = []
         while off < len(samples):
@@ -137,7 +142,7 @@ class StreamingDemodulator:
         self._lstate = leaves(tree["lstate"], self._lstate)
         self._tstate = leaves(tree["tstate"], self._tstate)
         self._hist = torch.as_tensor(np.asarray(tree["hist"])).to(
-            dev, torch.float64).reshape(1, -1)
+            dev, self.real).reshape(1, -1)
         buf = np.asarray(tree["buf"])
         self._buf[:len(buf)] = buf
         self._count = len(buf)
@@ -160,7 +165,7 @@ class StreamingDemodulator:
                 est = float(self._init_offset)
             self.est_offset = est
             self._lstate = self._lstate._replace(freq_offset=torch.full(
-                (1,), est, dtype=torch.float64, device=dev))
+                (1,), est, dtype=self.real, device=dev))
             self._first = False
 
         ev = self.on_event is not None

@@ -15,7 +15,8 @@ channel.  Channels with persistently divergent sample clocks are handled
 without deadlock or data loss by early short chunks (see feed()), at the
 cost of exact chunk-boundary parity for the lagging channels.
 
-The (C, 86,720 + 4,096) complex128 buffer lives on the device: a feed is
+The (C, 86,720 + 4,096) complex128 (complex64 at dtype="float32") buffer
+lives on the device: a feed is
 copied there once and written at each channel's count, and a chunk's
 leftovers move to the head of each row by a gather; only the per-channel
 counts stay on the host.
@@ -28,8 +29,8 @@ import torch
 
 from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.rx.cfo import estimate_cfo_batch
-from opv_tpu_torch.rx.demod import (loop_state_init, max_symbols,
-                                    require_float64)
+from opv_tpu_torch.rx.demod import (complex_dtype, loop_state_init,
+                                    max_symbols, real_dtype)
 from opv_tpu_torch.rx.pipeline import rx_block
 from opv_tpu_torch.rx.sync import sync_tracker_init
 from opv_tpu_torch.stream.chunked import STATE_NAMES, fetch
@@ -41,7 +42,11 @@ class MultiChannelTrackingDemodulator:
     def __init__(self, channels: int, init_offset: float | None = None,
                  afc_alpha: float = CONFIG.afc_alpha, dtype: str = "float64",
                  device="cuda"):
-        require_float64(dtype)
+        """init_offset: Hz for every channel, or one value per channel
+        (None: the first chunk's CFO estimate).  dtype: "float64" (the
+        reference's precision) or "float32" (a complex64 buffer and every
+        stage in float32, as opv_tpu's float32 mode)."""
+        self.real = real_dtype(dtype)
         self.channels = channels
         self.device = dev = torch.device(device)
         self.chunk = CONFIG.chunk_samples
@@ -54,17 +59,20 @@ class MultiChannelTrackingDemodulator:
         self.afc_alpha = float(afc_alpha)
         self.max_frames = max_symbols(self.cap) // CONFIG.frame_symbols + 2
 
-        self._buf = torch.zeros((channels, self.cap), dtype=torch.complex128,
+        self._cplx = complex_dtype(self.real)
+        self._buf = torch.zeros((channels, self.cap), dtype=self._cplx,
                                 device=dev)
         self._count = np.zeros(channels, dtype=np.int64)
         self._first = True
         self._init_offset = init_offset
         self._cols = torch.arange(self.cap, device=dev)
 
-        self.lstate = loop_state_init(0.0, channels=channels, device=dev)
-        self.tstate = sync_tracker_init(channels=channels, device=dev)
+        self.lstate = loop_state_init(0.0, channels=channels, device=dev,
+                                      dtype=self.real)
+        self.tstate = sync_tracker_init(channels=channels, device=dev,
+                                        dtype=self.real)
         self.hist = torch.zeros((channels, CONFIG.encoded_bits),
-                                dtype=torch.float64, device=dev)
+                                dtype=self.real, device=dev)
 
         self.decoded = np.zeros(channels, dtype=np.int64)
         self.perfect = np.zeros(channels, dtype=np.int64)
@@ -74,7 +82,7 @@ class MultiChannelTrackingDemodulator:
     def feed(self, samples):
         """samples: (C, n) complex, numpy or tensor.  Returns a list of
         (channel, frame_bytes, metric, sync_q, symbol_idx)."""
-        x = torch.as_tensor(samples).to(self.device, torch.complex128)
+        x = torch.as_tensor(samples).to(self.device, self._cplx)
         if x.dim() != 2 or x.shape[0] != self.channels:
             raise ValueError(f"expected ({self.channels}, n) samples, got "
                              f"{tuple(x.shape)}")
@@ -123,10 +131,12 @@ class MultiChannelTrackingDemodulator:
             if self._init_offset is None:
                 est = estimate_cfo_batch(self._buf).cpu().numpy()
             else:
-                est = np.full(self.channels, float(self._init_offset))
+                est = np.broadcast_to(np.asarray(self._init_offset,
+                                                 np.float64),
+                                      (self.channels,)).copy()
             self.est_offset = est
             self.lstate = self.lstate._replace(
-                freq_offset=torch.from_numpy(est.astype(np.float64)).to(dev))
+                freq_offset=torch.from_numpy(est).to(dev, self.real))
             self._first = False
 
         out, self.lstate, self.tstate, self.hist = rx_block(

@@ -25,7 +25,9 @@ source each (one nvcc per source), under build/track_sweep/:
                chain's cycles per symbol with nothing serialised
   latency      one warp timing dependent chains of each float64
                operation of the loop (add, multiply, divide, sincos,
-               atan2, a 64-bit shuffle) with clock64(), and the SM clock
+               atan2, a 64-bit shuffle) and of each float32 one (the
+               float32 loop's: __fadd_rn, __fmul_rn, __fdiv_rn, sincosf,
+               atan2f, a 32-bit shuffle) with clock64(), and the SM clock
                as clock64() against %globaltimer over a ~4 ms chain
   --extra      more sources (NAME=PATH), held and timed in the turns
 The SASS of build and baseline is written beside --out.
@@ -38,7 +40,12 @@ channel's symbols (the mean over channels; the spans are the measured
 critical path of each design), and each time over the symbols per
 channel at the measured SM clock.  The floor: FLOOR_CHAINS' operations at
 their measured latencies, the longer of the two loops, for any design of
-the twin's arithmetic.  Without a CUDA device it exits non-zero.
+the twin's arithmetic.  Then the float32 loop: build and span held
+against the float32 twin on the same chunks as complex64 (within
+chip_smoke.TRACK_F32_RTOL), build timed at float32 and float64 in turns
+(float32, float64, float64, float32), span's cycles a symbol, and the
+float32 floor (the same chains at the float32 latencies).  Without a CUDA
+device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -106,18 +113,18 @@ extern "C" int opv_track_probe(void* host, int n) {
 #: stamp inserted after it)), per design
 _CHECKOUT = (
     "  for (int j = k + tid; j < maxs; j += kThreads) {\n"
-    "    soft_row[j] = 0.0;\n    valid_row[j] = 0;\n  }\n",
+    "    soft_row[j] = R(0);\n    valid_row[j] = 0;\n  }\n",
     [("  while (run) {\n", "PROBE_START(ph1 + inc1);"),
-     ("        sincos(__dadd_rn(ph2, __dmul_rn(di, inc2)), &sn2, &co2);\n",
+     ("        sin_cos(add(ph2, mul(di, inc2)), &sn2, &co2);\n",
       "PROBE(1, sn1 + co1 + sn2 + co2);"),
-     ("      a[j + 1] = __dadd_rn(w0.y, w1.y);\n    }\n",
+     ("      a[j + 1] = add(w0.y, w1.y);\n    }\n",
       "PROBE(2, a[0] + a[1] + a[2] + a[3] + a[4] + a[5] + a[6] + a[7] + a[8]"
       " + a[9] + a[10] + a[11]);"),
-     ("      inc2 = lo_inc(p.fd, foff, p.fs);\n",
+     ("      inc2 = lo_inc(p.fd, foff, p);\n",
       "PROBE(3, inc1 + inc2 + ph1 + ph2);"),
-     ("      mu = __dsub_rn(t, t_int);\n", "PROBE(3, mu + pos);"),
-     ("      if (next)\n        stage(ring, full, seen, last_base, pos, mu, "
-      "stage_tap, first, win);\n", "PROBE(0, mu + pos);"),
+     ("      mu = sub(t, t_int);\n", "PROBE(3, mu + pos);"),
+     ("      if (next)\n        stage<R>(ring, full, seen, last_base, pos, "
+      "mu, stage_tap, first, win);\n", "PROBE(0, mu + pos);"),
      ("    run = go;\n", "PROBE(4, static_cast<double>(run));")])
 _WARP = (
     "  for (int j = k + lane; j < maxs; j += 32) {\n"
@@ -142,7 +149,8 @@ _LATENCY = r"""
 
 namespace {
 
-constexpr int kOps = 6;  // dadd, dmul, ddiv, sincos, atan2, shfl
+constexpr int kOps = 12;  // dadd, dmul, ddiv, sincos, atan2, shfl, then
+                          // the same in float32
 __device__ long long lat_cycles[kOps + 1];
 __device__ unsigned long long lat_ns;
 __device__ double lat_sink[kOps + 1];
@@ -183,6 +191,32 @@ __device__ __forceinline__ double step(double x, double y) {
 }
 
 template <int Op>
+__device__ __forceinline__ float fstep(float x, float y) {
+  if (Op == 6) return __fadd_rn(x, y);
+  if (Op == 7) return __fmul_rn(x, y);
+  if (Op == 8) return __fdiv_rn(x, y);
+  if (Op == 9) {
+    float s, c;
+    sincosf(x, &s, &c);
+    return __fmul_rn(__fadd_rn(s, c), y);
+  }
+  if (Op == 10) return atan2f(x, y);
+  return __fadd_rn(__shfl_xor_sync(0xffffffffu, x, 1), y);
+}
+
+template <int Op>
+__device__ void fchain(float x, float y, int n) {
+  const long long t0 = stamp(x);
+#pragma unroll 16
+  for (int i = 0; i < n; ++i) x = fstep<Op>(x, y);
+  const long long t1 = stamp(x);
+  if (threadIdx.x == 0) {
+    lat_cycles[Op] = t1 - t0;
+    lat_sink[Op] = x;
+  }
+}
+
+template <int Op>
 __device__ void chain(double x, double y, int n) {
   const long long t0 = stamp(x);
 #pragma unroll 16
@@ -202,6 +236,13 @@ __global__ void latency_kernel(double x0, Args a, int n, int clock_n) {
   chain<4>(x0, a.y[4], n);
   chain<5>(x0 + 1e-3 * threadIdx.x, a.y[5], n);  // a warp-uniform value's
   // shuffle folds away
+  const float f0 = static_cast<float>(x0);
+  fchain<6>(f0, static_cast<float>(a.y[6]), n);
+  fchain<7>(f0, static_cast<float>(a.y[7]), n);
+  fchain<8>(f0, static_cast<float>(a.y[8]), n);
+  fchain<9>(f0, static_cast<float>(a.y[9]), n);
+  fchain<10>(f0, static_cast<float>(a.y[10]), n);
+  fchain<11>(f0 + 1e-3f * threadIdx.x, static_cast<float>(a.y[11]), n);
   double x = x0;
   const unsigned long long g0 = now_ns();
   const long long t0 = stamp(x);
@@ -236,7 +277,10 @@ extern "C" int opv_latency(const double* y, int n, int clock_n,
 #: multiply to keep its argument in range)
 _LAT_OPS = (("dadd", 1e-3, ()), ("dmul", 1.0000001, ()),
             ("ddiv", 1.0000001, ()), ("sincos", 3.3, ("dadd", "dmul")),
-            ("atan2", -0.6, ()), ("shfl64", 1e-3, ("dadd",)))
+            ("atan2", -0.6, ()), ("shfl64", 1e-3, ("dadd",)),
+            ("fadd", 1e-3, ()), ("fmul", 1.0000001, ()),
+            ("fdiv", 1.0000001, ()), ("sincosf", 3.3, ("fadd", "fmul")),
+            ("atan2f", -0.6, ()), ("shfl32", 1e-3, ("fadd",)))
 _LAT_STEPS, _CLOCK_STEPS = 4096, 1 << 19
 #: the dependent float64 operations of the twin's arithmetic from one
 #: symbol's six correlator sums to the next symbol's, around each of its
@@ -252,6 +296,10 @@ _LAT_STEPS, _CLOCK_STEPS = 4096, 1 << 19
 FLOOR_CHAINS = {"afc": {"dmul": 7, "dadd": 12, "ddiv": 2, "sincos": 1,
                         "atan2": 1},
                 "timing": {"dmul": 4, "dadd": 21, "ddiv": 1}}
+#: the float32 loop's: the same chains in float32 operations
+FLOOR_CHAINS_F32 = {"afc": {"fmul": 7, "fadd": 12, "fdiv": 2, "sincosf": 1,
+                            "atan2f": 1},
+                    "timing": {"fmul": 4, "fadd": 21, "fdiv": 1}}
 
 
 def read_latency(lib) -> dict:
@@ -270,10 +318,10 @@ def read_latency(lib) -> dict:
     return out
 
 
-def floor_cycles(lat: dict) -> dict:
-    """Cycles a symbol of each loop in FLOOR_CHAINS at the latencies."""
+def floor_cycles(lat: dict, chains=FLOOR_CHAINS) -> dict:
+    """Cycles a symbol of each loop in `chains` at the latencies."""
     return {loop: sum(n * lat[op] for op, n in ops.items())
-            for loop, ops in FLOOR_CHAINS.items()}
+            for loop, ops in chains.items()}
 
 
 def insert_after(src: str, anchor: str, text: str) -> str:
@@ -322,9 +370,10 @@ def load_one(so: pathlib.Path) -> ctypes.CDLL:
     """A library of one source: its opv_track_symbols, probe call or
     latency call, whichever it exports."""
     lib = ctypes.CDLL(str(so))
-    if hasattr(lib, "opv_track_symbols"):
-        fn = lib.opv_track_symbols
-        fn.argtypes, fn.restype = build.SIGNATURES["opv_track_symbols"]
+    for name in ("opv_track_symbols", "opv_track_symbols_f32"):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = build.SIGNATURES[name]
     if hasattr(lib, "opv_latency"):
         lib.opv_latency.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_void_p,
@@ -394,6 +443,47 @@ def read_probe(lib, c: int) -> dict:
     return out
 
 
+def float32_turns(libs, dev, lat, sm_mhz, card) -> dict:
+    """The float32 loop (opv_track_symbols_f32 of build and span) on the
+    chunks of track_inputs as complex64, at C = 1 and TRACK_CHANNELS: held
+    against the float32 twin, build timed at float32 and float64 in
+    turns, span's cycles a symbol, against the float32 floor."""
+    floors = floor_cycles(lat, FLOOR_CHAINS_F32)
+    out = {"floor_cycles": floors, "channels": {}}
+    maxs = max_symbols(SPF)
+    for c in (1, TRACK_CHANNELS):
+        x, nv, state = track_inputs(c, dev, torch.float32)
+        x64, _, state64 = track_inputs(c, dev)
+        entry = out["channels"][c] = {"held": {}}
+        for name in ("build", "span"):
+            (_, valid, _, _), err, _ = hold_track(
+                x, nv, state, f"float32 {name} C={c}",
+                run=functools.partial(ts.launch, libs[name]))
+            entry["held"][name] = err
+        runner(libs["span"], x, nv, state, maxs)()
+        nsym = int(valid.sum()) / c
+        span = read_probe(libs["span"], c)
+        entry["span_cycles"] = {who: st["span"] for who, st in span.items()}
+        turns = [(dt, cuda_ms(runner(libs["build"], *a, maxs), TRACK_REPS))
+                 for dt, a in (("float32", (x, nv, state)),
+                               ("float64", (x64, nv, state64)),
+                               ("float64", (x64, nv, state64)),
+                               ("float32", (x, nv, state)))]
+        entry["turns"] = [[dt, ms, ms * 1e-3 * sm_mhz * 1e6 / nsym]
+                          for dt, ms in turns]
+        entry["floor_ms"] = max(floors.values()) * nsym / sm_mhz / 1e3
+        print(f"[sweep] float32 C={c}: build and span held against the "
+              f"float32 twin (soft within "
+              f"{max(entry['held'].values()):.3e}); turns " + ", ".join(
+                  f"{dt} {ms:.4f} ms ({cyc:.0f} cycles/symbol)"
+                  for dt, ms, cyc in entry["turns"]) +
+              f"; span " + ", ".join(f"{w} {v:.0f}"
+                                     for w, v in entry["span_cycles"].items())
+              + f" cycles/symbol; float32 floor {floors} cycles, "
+              f"{entry['floor_ms']:.4f} ms ({card})", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=pathlib.Path, required=True,
@@ -459,6 +549,7 @@ def main(argv=None) -> int:
             for who, st in per.items():
                 print(f"[sweep] C={c} {name} {who}: cycles/symbol " + ", ".join(
                     f"{k} {v:.0f}" for k, v in st.items()), flush=True)
+    report["float32"] = float32_turns(libs, dev, lat, sm_mhz, card)
     args.out.write_text(json.dumps(report, indent=1))
     print(f"[sweep] wrote {args.out} ({card})", flush=True)
     return 0

@@ -25,7 +25,8 @@ from chip_smoke import (COHERENT_RTOL, COHERENT_SYMBOLS,  # noqa: E402
                         same_tracking, same_wideband, serve_eager,
                         soft_stress, spy_kernels, stream_twin_checks,
                         SYNC_EDGE_CASES, sync_edge_case, sync_stress,
-                        TRACK_EDGE_CASES, track_edge_case, track_inputs,
+                        TRACK_EDGE_CASES, TRACK_F32_EDGE_CASES,
+                        PRECISION_Q_TOL, track_edge_case, track_inputs,
                         viterbi_inputs, wideband_k4)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
@@ -42,6 +43,8 @@ EB = CONFIG.encoded_bits
 #: float32 soft values: |kernel - twin| <= 1e-5 * max|twin| (80-term sums in
 #: another order, fused multiply-adds in the combine)
 RTOL = 1e-5
+#: float64 rows: the same, float64 sums in another order
+F64_RTOL = 1e-12
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +74,12 @@ def _signal(n_frames, delays, noise=0.0, seed=0):
 def _close(got, want):
     err = float((got.double() - want.double()).abs().max())
     assert err <= RTOL * float(want.abs().max()), err
+
+
+def _close64(got, want):
+    assert got.dtype == want.dtype == torch.float64
+    err = float((got - want).abs().max())
+    assert err <= F64_RTOL * float(want.abs().max()), err
 
 
 def _viterbi_check(soft, radix):
@@ -123,15 +132,22 @@ def _soft_rows(case, dtype, dev, grid, tile):
     odd_n       (3, N) complex64 with N odd: channel c of the float32 view
                 starts at byte 8*N*c, so odd channels are 8-byte aligned only
     sliced      rows cut from a longer buffer at an offset of 4 bytes:
-                channel bases 4, 8 or 12 bytes past a 16-byte boundary"""
-    rows_dt = torch.float32 if dtype == "f32" else torch.int8
+                channel bases 4, 8 or 12 bytes past a 16-byte boundary
+                (float64 rows: 8 bytes)
+    f64 rows are float64 (the complex128 path) of the same samples."""
+    rows_dt = {"f32": torch.float32, "int8": torch.int8,
+               "f64": torch.float64}[dtype]
     g = torch.Generator().manual_seed(17)
     if case == "many":
         shape = (grid + 7, 2 * tile + 2, 80)
         if dtype == "int8":
             return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
-        return (3000.0 * torch.randn(shape, generator=g)).to(dev)
+        return (3000.0 * torch.randn(shape, generator=g, dtype=rows_dt)
+                if rows_dt == torch.float64
+                else 3000.0 * torch.randn(shape, generator=g)).to(dev)
     x, _ = _signal(1, (0, 13, 517), noise=1500.0)
+    if dtype == "f64":
+        x = x.to(torch.complex128)
     if case == "one_channel":
         x = x[1:2]
     if case == "odd_n":
@@ -143,7 +159,7 @@ def _soft_rows(case, dtype, dev, grid, tile):
         # one float32 element, or four int8 ones (the kernel takes int8
         # channels on a 4-byte boundary)
         c, m, _ = rows.shape
-        off = 1 if dtype == "f32" else 4
+        off = 4 if dtype == "int8" else 1
         buf = torch.zeros((c, m * 80 + off), dtype=rows_dt, device=dev)
         buf[:, off:] = rows.reshape(c, -1)
         rows = buf[:, off:].unflatten(1, (m, 80))
@@ -153,9 +169,15 @@ def _soft_rows(case, dtype, dev, grid, tile):
 @pytest.mark.parametrize("dtype,case", [
     ("f32", "signal"), ("int8", "signal"), ("f32", "one_channel"),
     ("int8", "one_channel"), ("f32", "many"), ("int8", "many"),
-    ("f32", "odd_n"), ("f32", "sliced"), ("int8", "sliced")])
+    ("f32", "odd_n"), ("f32", "sliced"), ("int8", "sliced"),
+    ("f64", "signal"), ("f64", "one_channel"), ("f64", "many"),
+    ("f64", "sliced")])
 def test_soft_kernel_matches_twin(cuda_dev, dtype, case):
-    cfg = ss.kernel_config(dtype == "int8")
+    """Each row type's instantiation against its twin (float64 rows within
+    F64_RTOL: float64 sums in another order)."""
+    rows_dt = {"f32": torch.float32, "int8": torch.int8,
+               "f64": torch.float64}[dtype]
+    cfg = ss.kernel_config(rows_dt)
     tile = cfg["threads"] * cfg["rows_per_thread"]
     samples = _soft_rows(case, dtype, cuda_dev, cfg["grid"], tile)
     c = samples.shape[0]
@@ -174,28 +196,30 @@ def test_soft_kernel_matches_twin(cuda_dev, dtype, case):
     got = ss.symbol_soft_cuda(*ops, nsym)
     raw = ss.symbol_soft_cuda(*ops, nsym, raw=True)
     torch.cuda.synchronize()
-    rows_type = "float32" if dtype == "f32" else "int8"
+    rows_type = {"f32": "float32", "int8": "int8", "f64": "float64"}[dtype]
     assert ss.symbol_soft_cuda.launches == {**n0, rows_type: n0[rows_type] + 2}
-    _close(got, ss.symbol_soft_reference(*ops, nsym))
+    close = _close64 if dtype == "f64" else _close
+    assert got.dtype == (torch.float64 if dtype == "f64" else torch.float32)
+    close(got, ss.symbol_soft_reference(*ops, nsym))
     want_raw = ss.symbol_soft_reference(*ops, nsym, raw=True)
     if dtype == "int8":
         assert raw.dtype == want_raw.dtype == torch.int32
         assert torch.equal(raw, want_raw)
     else:
-        _close(raw, want_raw)
+        close(raw, want_raw)
     # shorter nsym: one symbol, a tile less one, one tile, one more, a
     # multiple of the tile (the tile's closing row comes from the ring or
     # from the block's own extra row)
     for k in sorted({1, tile - 1, tile, tile + 1, 2 * tile, nsym - 1}):
         if not 0 < k < nsym:
             continue
-        _close(ss.symbol_soft_cuda(*ops, k), ss.symbol_soft_reference(*ops, k))
+        close(ss.symbol_soft_cuda(*ops, k), ss.symbol_soft_reference(*ops, k))
         raw_k = ss.symbol_soft_cuda(*ops, k, raw=True)
         raw_t = ss.symbol_soft_reference(*ops, k, raw=True)
         if dtype == "int8":
             assert torch.equal(raw_k, raw_t)
         else:
-            _close(raw_k, raw_t)
+            close(raw_k, raw_t)
 
 
 @pytest.mark.parametrize("odd_n", [False, True])
@@ -411,9 +435,10 @@ def test_track_symbols_kernel_matches_twin(cuda_dev, channels):
     chip_smoke.TRACK_RTOL (hold_track)."""
     from opv_tpu_torch.ops import track_symbols as ts
     x, nv, state = track_inputs(channels, cuda_dev)
-    n0 = ts.track_symbols_cuda.launches
+    n0 = dict(ts.track_symbols_cuda.launches)
     (_, valid, st, used), _, _ = hold_track(x, nv, state, "first call")
-    assert ts.track_symbols_cuda.launches == n0 + 1
+    assert ts.track_symbols_cuda.launches == {**n0,
+                                              "float64": n0["float64"] + 1}
     assert int(valid.sum()) >= 2160 * channels
     nxt = torch.stack([torch.from_numpy(capture(n)[u:u + x.shape[1]]).to(cuda_dev)
                        for n, u in zip(("bert3", "cfo500", "awgn10", "awgn7",
@@ -453,8 +478,8 @@ def test_sync_scan_kernel_matches_twin(cuda_dev):
     n0 = dict(sc.sync_scan_cuda.launches)
     (_, _, ready, _, events, _, _), _ = hold_sync(*sync_stress(64, 2284, cuda_dev),
                                                   "stress")
-    assert sc.sync_scan_cuda.launches == {"GivenSync": n0["GivenSync"] + 1,
-                                          "SoftSync": n0["SoftSync"]}
+    assert sc.sync_scan_cuda.launches == {**n0,
+                                          "GivenSync": n0["GivenSync"] + 1}
     assert set(events.unique().tolist()) == set(range(6))
     assert int(ready.sum()) > 0
 
@@ -475,7 +500,8 @@ def test_sync_scan_kernels_at_shapes(cuda_dev, channels, steps):
     hold_sync(*sync_stress(channels, steps, cuda_dev), f"{channels}x{steps}")
     hold_sync_soft(*soft_stress(channels, steps, cuda_dev),
                    f"{channels}x{steps}")
-    assert sc.sync_scan_cuda.launches == {"GivenSync": n0["GivenSync"] + 1,
+    assert sc.sync_scan_cuda.launches == {**n0,
+                                          "GivenSync": n0["GivenSync"] + 1,
                                           "SoftSync": n0["SoftSync"] + 1}
 
 
@@ -498,6 +524,84 @@ def test_sync_scan_kernels_at_edges(cuda_dev, name):
         assert set(got[4].unique().tolist()) == set(range(6))
     if name == "view":
         assert x.data_ptr() % 16 == 8 and x.stride(0) > x.shape[1]
+
+
+@pytest.mark.parametrize("channels", [1, 7])
+def test_track_symbols_f32_kernel_matches_twin(cuda_dev, channels):
+    """track_symbols[float32] against its float32 twin on one chunk of the
+    golden captures (complex64), then a second call from the carried state
+    and leftover: counts and positions equal, soft and the state within
+    chip_smoke.TRACK_F32_RTOL; counted as float32 only."""
+    from opv_tpu_torch.ops import track_symbols as ts
+    x, nv, state = track_inputs(channels, cuda_dev, torch.float32)
+    n0 = dict(ts.track_symbols_cuda.launches)
+    (soft, valid, st, used), _, _ = hold_track(x, nv, state, "first call")
+    assert ts.track_symbols_cuda.launches == {**n0,
+                                              "float32": n0["float32"] + 1}
+    assert soft.dtype == st.dtype == torch.float32
+    assert int(valid.sum()) >= 2160 * channels
+    nxt = torch.stack([torch.from_numpy(capture(n)[u:u + x.shape[1]])
+                       .to(cuda_dev, torch.complex64)
+                       for n, u in zip(("bert3", "cfo500", "awgn10", "awgn7",
+                                        "awgn8", "dropout", "drift"),
+                                       used.tolist())])[:channels]
+    hold_track(nxt, nv, st, "second call")
+
+
+@pytest.mark.parametrize("name", TRACK_EDGE_CASES + TRACK_F32_EDGE_CASES)
+def test_track_symbols_f32_kernel_at_ring_edges(cuda_dev, name):
+    """track_symbols[float32] against its twin at the edges of its sample
+    ring (chip_smoke.track_edge_case at float32): TRACK_EDGE_CASES, and
+    complex64 rows of odd length or off 16 bytes, which the wrapper pads
+    for the 16-byte bulk copies."""
+    x, nv, state = track_edge_case(name, cuda_dev, torch.float32)
+    (_, valid, _, _), _, _ = hold_track(x, nv, state, name)
+    n_sym = valid.sum(1).tolist()
+    if name == "cap 64":
+        assert n_sym == [0, 0]
+    elif name.startswith("clamp"):
+        assert n_sym == [61]
+    elif name == "odd rows":
+        assert n_sym[0] > 240 and n_sym[2] > 20
+    elif name in ("C=133", "storage offset", "odd cap"):
+        assert min(n_sym) >= 2160
+
+
+@pytest.mark.parametrize("channels,steps", [(1, 31), (3, 33), (64, 2284),
+                                            (133, 2284), (1, 26_000)])
+def test_sync_scan_f32_kernels_match_twins(cuda_dev, channels, steps):
+    """Both float32 instantiations of the sync kernel bit for bit against
+    their float32 twins (GivenSync on sync_stress with norms on the locked
+    threshold as float32 rounds it, SoftSync on soft_stress), each counted
+    once as float32."""
+    from opv_tpu_torch.ops import sync_scan as sc
+    raw, norm, valid, ints, q = sync_stress(channels, steps, cuda_dev)
+    norm[5::6] = CONFIG.sync_locked_norm_thresh
+    n0 = dict(sc.sync_scan_cuda.launches)
+    hold_sync(raw.float(), norm.float(), valid, ints, q.float(),
+              f"float32 {channels}x{steps}")
+    x, valid, ints, q = soft_stress(channels, steps, cuda_dev)
+    got, _ = hold_sync_soft(x.float(), valid, ints, q.float(),
+                            f"float32 {channels}x{steps}")
+    assert got[3].dtype == got[7].dtype == torch.float32
+    assert sc.sync_scan_cuda.launches == {
+        **n0, "GivenSync,float32": n0["GivenSync,float32"] + 1,
+        "SoftSync,float32": n0["SoftSync,float32"] + 1}
+
+
+def test_streaming_f32_on_card_matches_cpu(cuda_dev):
+    """StreamingDemodulator(dtype="float32") on bert3 on the card: the
+    reference's frames, and the tuples of the same receiver on the host
+    given the card's CFO estimate."""
+    from opv_tpu_torch.stream import StreamingDemodulator
+    x = capture("bert3")
+    sd = StreamingDemodulator(device=cuda_dev, dtype="float32")
+    got = sd.feed(x) + sd.flush()
+    cpu = StreamingDemodulator(device="cpu", dtype="float32",
+                               init_offset=sd.est_offset)
+    want = cpu.feed(x) + cpu.flush()
+    assert [t[0] for t in got] == golden_frames("bert3.frames")
+    same_tracking(got, want, "float32 bert3", PRECISION_Q_TOL)
 
 
 def test_rx_block_runs_one_soft_sync_launch(cuda_dev, monkeypatch):
@@ -525,7 +629,7 @@ def test_rx_block_runs_one_soft_sync_launch(cuda_dev, monkeypatch):
     n0 = dict(sc.sync_scan_cuda.launches)
     got = run(cuda_dev)
     torch.cuda.synchronize()
-    assert sc.sync_scan_cuda.launches == {"GivenSync": n0["GivenSync"],
+    assert sc.sync_scan_cuda.launches == {**n0,
                                           "SoftSync": n0["SoftSync"] + 1}
     assert int(got[0]["events"].count_nonzero()) > 0
     for k, w in want[0].items():

@@ -81,7 +81,9 @@ def test_port_imports_no_jax():
 
 
 #: names of opv_tpu's subpackages that the port has no counterpart of
-LACKING = {"rx": {"viterbi_decode"}}
+LACKING: dict = {}
+#: names the port's subpackages export beyond opv_tpu's (after them)
+EXTRA = {"io": ["iq_bytes_to_i16_pairs"]}
 
 
 def test_top_level_exports_jax_names_lazily():
@@ -109,15 +111,17 @@ def test_top_level_exports_jax_names_lazily():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("sub", ["core", "rx", "tx"])
+@pytest.mark.parametrize("sub", ["core", "rx", "tx", "io"])
 def test_subpackages_reexport_jax_names(sub):
-    """core/, rx/ and tx/ re-export opv_tpu's names that the port has,
-    each an object of the port's module of that subpackage."""
+    """core/, rx/, tx/ and io/ re-export opv_tpu's names that the port has
+    (then the port's own), each an object of the port's module of that
+    subpackage."""
     import importlib
     jax_names = importlib.import_module(f"opv_tpu.{sub}").__all__
     port = importlib.import_module(f"opv_tpu_torch.{sub}")
     lacking = LACKING.get(sub, set())
-    assert port.__all__ == [n for n in jax_names if n not in lacking]
+    assert port.__all__ == [n for n in jax_names if n not in lacking] \
+        + EXTRA.get(sub, [])
     for name in port.__all__:
         obj = getattr(port, name)
         assert obj.__module__.startswith(f"opv_tpu_torch.{sub}."), name
@@ -229,7 +233,20 @@ def test_cuda_entry_point_without_cuda_raises():
             torch.zeros((1, 26), dtype=torch.float64), f64.bool(),
             torch.zeros((1, 6), dtype=torch.int32),
             torch.zeros(1, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        track_symbols.track_symbols_cuda(
+            torch.zeros((1, 64), dtype=torch.complex64),
+            torch.tensor([64], dtype=torch.int32),
+            torch.zeros((1, 9), dtype=torch.float32), 0.001, 3)
+    f32 = f64.float()
+    with pytest.raises(ValueError):
+        sync_scan.sync_scan_cuda(f32, f32, f32.bool(),
+                                 torch.zeros((1, 6), dtype=torch.int32),
+                                 torch.zeros(1, dtype=torch.float32))
     assert viterbi.viterbi_r4_cuda.launches == 0
     assert phase_track.phase_track_cuda.launches == 0
-    assert track_symbols.track_symbols_cuda.launches == 0
-    assert sync_scan.sync_scan_cuda.launches == {"GivenSync": 0, "SoftSync": 0}
+    assert track_symbols.track_symbols_cuda.launches == {"float64": 0,
+                                                         "float32": 0}
+    assert sync_scan.sync_scan_cuda.launches == {
+        "GivenSync": 0, "SoftSync": 0, "GivenSync,float32": 0,
+        "SoftSync,float32": 0}

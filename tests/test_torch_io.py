@@ -119,3 +119,33 @@ def test_metrics_match_on_engines_fed_the_same_feed():
     met_p.emit_json(m_p, out=out)
     line = out.getvalue()
     assert line.count("\n") == 1 and json.loads(line)["decoded"] == m_j["decoded"]
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_iq_bytes_to_f32_pairs_matches(channels):
+    """(C, n, 2) float32 pairs, contiguous, equal to the JAX package's; a
+    partial sample instant at the end is dropped."""
+    buf = _wire(4 * channels * 777 + 4 * channels - 1, 40 + channels)
+    got = iq_p.iq_bytes_to_f32_pairs(buf, channels=channels)
+    want = iq_j.iq_bytes_to_f32_pairs(buf, channels=channels)
+    assert got.dtype == want.dtype == np.float32
+    assert got.shape == want.shape == (channels, 777, 2)
+    assert got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_complex_to_iq_bytes_matches(dtype):
+    """Truncation toward zero and saturation at the rails, equal to the
+    JAX package's wire bytes (complex64 and complex128 in), and the round
+    trip through iq_bytes_to_complex."""
+    rng = np.random.default_rng(11)
+    s = (rng.uniform(-40_000, 40_000, 5_000)
+         + 1j * rng.uniform(-40_000, 40_000, 5_000))
+    s[:6] = [0.999, -0.999, 32767.5, -32768.9, 16383 + 0.5j, -16383.2 - 1j]
+    s = s.astype(dtype)
+    got = iq_p.complex_to_iq_bytes(s)
+    assert got == iq_j.complex_to_iq_bytes(s)
+    back = iq_p.iq_bytes_to_complex(got)
+    np.testing.assert_array_equal(back.real, np.clip(np.trunc(s.real),
+                                                     -32768, 32767))

@@ -177,5 +177,11 @@ def test_default_device_needs_a_card():
 
 
 def test_float32_names_item_11b():
-    with pytest.raises(NotImplementedError, match="11b"):
-        StreamingDemodulator(dtype="float32", device="cpu")
+    """dtype="float32" (item 11b) builds a float32 receiver; another dtype
+    is refused by name."""
+    sd = StreamingDemodulator(dtype="float32", device="cpu")
+    assert sd.hist.dtype == sd.lstate.mu.dtype == sd.tstate.sync_q.dtype \
+        == torch.float32
+    assert sd.feed(np.zeros(100, np.complex64)) == [] and sd.flush() == []
+    with pytest.raises(ValueError, match="bfloat16"):
+        StreamingDemodulator(dtype="bfloat16", device="cpu")

@@ -118,13 +118,18 @@ def test_layout_matches_jax():
 
 
 def test_float32_and_cuda_wrapper_refuse():
-    """float32 tracking is item 11b; the CUDA wrapper takes no CPU tensor
-    and launches nothing."""
+    """complex64 samples run the float32 loop (its state rounded to
+    float32); the wrapper refuses a state of the other precision; the CUDA
+    wrapper takes no CPU tensor and launches nothing."""
     st = demod_t.loop_state_init(0.0, channels=1)
-    with pytest.raises(NotImplementedError, match="11b"):
-        demod_t.demodulate_block(torch.zeros((1, 128), dtype=torch.complex64),
-                                 torch.tensor([128]), st)
-    n0 = ts.track_symbols_cuda.launches
+    soft, _, st2, _ = demod_t.demodulate_block(
+        torch.zeros((1, 128), dtype=torch.complex64), torch.tensor([128]), st)
+    assert soft.dtype == torch.float32 and st2.mu.dtype == torch.float32
+    x64 = torch.zeros((1, 128), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="float32"):
+        ts.track_symbols_reference(x64, torch.tensor([128], dtype=torch.int32),
+                                   demod_t.pack_state(st), 0.001, 5)
+    n0 = dict(ts.track_symbols_cuda.launches)
     with pytest.raises(ValueError):
         ts.track_symbols_cuda(torch.zeros((1, 128), dtype=torch.complex128),
                               torch.tensor([128], dtype=torch.int32),

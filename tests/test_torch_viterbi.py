@@ -124,3 +124,18 @@ def test_registry_cpu_dispatch_uses_twin_for_both_radices():
     with pytest.raises(ValueError):
         registry.set_viterbi_radix(3)
 
+
+
+@pytest.mark.parametrize("kind", ["clean", "tie_stress"])
+def test_single_frame_decode_matches_jax(kind):
+    """rx.viterbi_decode (one frame, a batch of one through the registry)
+    gives opv_tpu.rx.viterbi_decode's bits and metric, frame by frame."""
+    from opv_tpu.rx.viterbi import viterbi_decode as decode_j
+    from opv_tpu_torch.rx import viterbi_decode
+    soft = _matrix(kind, np.random.default_rng(9)).astype(np.int32)
+    for row in soft[:3]:
+        bits, metric = viterbi_decode(torch.from_numpy(row))
+        b_j, m_j = decode_j(jnp.asarray(row))
+        assert bits.shape == (CONFIG.frame_bits,) and metric.shape == ()
+        np.testing.assert_array_equal(bits.numpy(), np.asarray(b_j))
+        assert int(metric) == int(m_j)
