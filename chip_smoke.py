@@ -199,7 +199,33 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               memory; then symbol_soft[float64] held against its twin on
               the steady block's operands (SOFT_F64_RTOL), its time, bytes
               bound and torch.bmm's float64 time
- 14. the kernels JSON line (launches: the main path's, for phase_track the
+ 14. mesh     the multi-device modes, on meshes naming the card several
+              times (a shard per entry, each with its own tensors): (a)
+              stream-64's feed (phase 7) through LockedStreamDemodulator(64,
+              block_frames 4, mesh=('ch'=8)) and unsharded, synchronous and
+              pipelined, float32 rows and int8 + AGC: the tuples equal, the
+              transmitted frames once each (float32), the window one (8,
+              window/40, 80) tensor per shard, K3/K1 launches per block of
+              both, shard 0's first K3 and K1 call of each program held
+              against the twins; ms per steady block on bench.py's cyclic
+              feed, sharded against unsharded in turns, peak memory; (b)
+              wideband-64 periodic (phase 10 (g)'s feed) through
+              WidebandReceiver(64, mesh=('ch'=8)) and unsharded: the
+              tuples equal, ms per quantum; (c) smoke-64x20's signal
+              through rx_fast_sharded ('ch'=8) against rx_fast (frames
+              equal, n the valid frames), its channel 0 through
+              rx_time_sharded ('time'=4): every frame once, starts within
+              one sample of its grid; (d) ShardedStreamDemodulator on a
+              (ch=8, time=4) mesh over smoke-64x20's 64 channels in
+              300,001-sample feeds: every frame once, byte-exact, at its
+              position, and a mid-stream checkpoint resumed to the same
+              tuples; (e) this script as two worker processes on the card
+              (gloo): the (ch=2, time=2) grid decode and the grid stream
+              (its 'time' axis across the processes) and the locked engine
+              with 'ch' across the processes, each equal to its
+              single-process run, both ranks the same tuples; (f)
+              dryrun_multichip(8)
+ 15. the kernels JSON line (launches: the main path's, for phase_track the
      cli phase's opv_mod runs, for track_symbols and sync_scan[SoftSync]
      the tracking phase's (b)-(d), for sync_scan[GivenSync] its route's
      in (a); launches_stream: the stream phase's two runs;
@@ -208,7 +234,7 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      wideband phase's runs (b)-(e); launches_tracking: the tracking
      phase's (b)-(d); launches_dense: the dense phase's runs (a)-(d)
      without its stage timings; launches_precision: the precision phase's
-     (b)-(e); the float32 instantiations of track_symbols and sync_scan
+     (b)-(e); launches_mesh: the mesh phase's (a)-(d) and (f); the float32 instantiations of track_symbols and sync_scan
      and the float64 one of symbol_soft their own rows, launches from
      phase 13 (b)-(e), GivenSync's from its float32 route), the card line,
      then the result line
@@ -434,6 +460,16 @@ COHERENT_RTOL = 1e-9
 COHERENT_SYMBOLS = 320
 #: the reference binary's report of opv-demod -c < bert3.iq
 #: (tests/test_coherent.py)
+#: phase 14 (mesh): the 'ch' axis of the sharded engine, wideband receiver
+#: and rx_fast_sharded; the 'time' axis of rx_time_sharded; the grid
+#: stream's (ch, time) mesh and its feed size (straddling its windows); the
+#: timed calls of (c); seconds a worker process of (e) may take
+MESH_CH = 8
+MESH_TIME = 4
+MESH_GRID = (8, 4)
+MESH_GRID_CHUNK = 300_001
+MESH_REPS = 3
+MESH_WORKER_TIMEOUT_S = 420
 COHERENT_LINES = ("Estimated carrier offset: 1430.0 Hz",
                   "Demodulated 6604 symbols, final AFC offset: 2000.0 Hz",
                   "Summary: 0 frames (0 perfect, 0 errors)",
@@ -4071,6 +4107,385 @@ def phase_precision(dev, card, int_ops_per_s: float, tracking: dict):
                 complex128=c128)
 
 
+def mesh_of(dev, axes: dict):
+    """A mesh naming the card once per entry (a mesh may repeat a device:
+    each entry holds its own tensors)."""
+    from opv_tpu_torch.parallel import make_mesh
+    return make_mesh(axes, devices=[dev] * int(np.prod(list(axes.values()))))
+
+
+def first_difference(got, want) -> str:
+    """Where two tuple streams part, for an error message."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            return (f"tuple {i}: {(g[0], g[2], g[3], g[4])} against "
+                    f"{(w[0], w[2], w[3], w[4])}")
+    return f"{len(got)} tuples against {len(want)}"
+
+
+def mesh_stream(x, frames, delays, dev, card):
+    """(a) stream-64's feed through the engine on a ('ch'=MESH_CH) mesh
+    naming the card MESH_CH times and unsharded, synchronous and
+    pipelined, float32 rows and int8 + AGC: the tuples equal, the
+    transmitted frames once each (float32); launches per block; then ms
+    per block on bench.py's cyclic feed, sharded against unsharded.
+    Returns (record, the kernel operands kept for the holds)."""
+    import torch
+    from opv_tpu_torch.ops import registry
+    feed, want = stream_feed(x, frames, delays, dev)
+    mesh = mesh_of(dev, {"ch": MESH_CH})
+    rec, kept = {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for dtype, agc in (("float32", False), ("int8", True)):
+        for pipeline in (False, True):
+            arm = f"{dtype}{' + AGC' if agc else ''}, " + (
+                "pipelined" if pipeline else "synchronous")
+            per_block = {}
+            for name, extra in (("unsharded", {}),
+                                ("sharded", {"mesh": mesh})):
+                before = registry.launch_counts()
+                out, sd, calls, held = drive_stream(
+                    feed, dev, dtype, spy=bool(extra) and not pipeline,
+                    agc=agc, pipeline=pipeline, **extra)
+                after = registry.launch_counts()
+                blocks = len(sd.block_stats)
+                per_block[name] = {k: (after[k] - before[k]) / blocks
+                                   for k in ("viterbi_r4",
+                                             f"symbol_soft[{dtype}]")}
+                if extra:
+                    got, shards = out, [tuple(p.shape) for p in sd._buf.parts]
+                    if held:
+                        kept[arm] = held
+                else:
+                    ref = out
+            if got != ref:
+                raise AssertionError(f"[mesh] (a) {arm}: the sharded engine's "
+                                     f"tuples differ: "
+                                     f"{first_difference(got, ref)}")
+            if dtype == "float32":
+                check_stream(got, want, f"mesh {arm}")
+            if shards != [(x.shape[0] // MESH_CH, sd.window // 40, 80)] \
+                    * MESH_CH:
+                raise AssertionError(f"[mesh] (a) window shards {shards}")
+            rec[arm] = dict(tuples=len(got), launches_per_block=per_block)
+            log(f"[mesh] (a) stream-64 {arm} on a ('ch'={MESH_CH}) mesh of "
+                f"the card: {len(got)} tuples equal to the unsharded "
+                f"engine's; launches per block {per_block}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    thr = {}
+    for pipeline in (False, True):
+        for name, extra in (("unsharded", {}), ("sharded", {"mesh": mesh}),
+                            ("sharded again", {"mesh": mesh}),
+                            ("unsharded again", {})):
+            msps, ms, blocks = stream_throughput(x, dev, "float32",
+                                                 pipeline=pipeline, **extra)
+            thr[f"{'pipelined' if pipeline else 'synchronous'} {name}"] = \
+                dict(msamples_s=msps, ms_per_block=ms,
+                     device_wait_ms=statistics.mean(
+                         b["device_wait_ms"] for b in blocks),
+                     lifecycle_ms=statistics.mean(b["host_ms"]
+                                                  for b in blocks))
+    log(f"[mesh] (a) ms per steady block of bench.py's cyclic feed, float32, "
+        f"in turns: "
+        + "; ".join(f"{k} {v['ms_per_block']:.3f} (wait "
+                    f"{v['device_wait_ms']:.3f}, lifecycle "
+                    f"{v['lifecycle_ms']:.3f})" for k, v in thr.items())
+        + f"; peak memory of the drives {peak / 2**30:.2f} GiB ({card})")
+    return dict(runs=rec, throughput=thr, peak_bytes=peak), kept
+
+
+def mesh_wideband(dev, card):
+    """(b) wideband-64 periodic (phase 10 (g)'s feed) through
+    WidebandReceiver(WB_K, block_frames=WB_BF) unsharded and on a
+    ('ch'=MESH_CH) mesh of the card: every tuple of a window, the warm-up
+    and the timed quanta equal; ms per quantum."""
+    import torch
+    from opv_tpu_torch.stream import WidebandReceiver
+    xp, period = periodic_wideband(dev)
+    res, outs = {}, {}
+    for name, mesh in (("unsharded", None),
+                       ("sharded", mesh_of(dev, {"ch": MESH_CH}))):
+        rx = WidebandReceiver(WB_K, block_frames=WB_BF, device=dev, mesh=mesh)
+        q = rx.quantum
+        src = torch.cat([xp, xp[: rx.window + q]])
+        out = rx.feed(src[: rx.window])
+        pos = rx.window
+        for _ in range(WB_WARM_QUANTA):
+            out += rx.feed(src[pos % period: pos % period + q])
+            pos += q
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(WB_TIMED_QUANTA):
+            out += rx.feed(src[pos % period: pos % period + q])
+            pos += q
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / WB_TIMED_QUANTA
+        outs[name] = out
+        res[name] = dict(ms_per_quantum=ms, tuples=len(out),
+                         x_real_time=q / ms / 1e3 / (WB_K * REAL_TIME_MSPS))
+    if outs["sharded"] != outs["unsharded"]:
+        diff = first_difference(outs["sharded"], outs["unsharded"])
+        raise AssertionError(f"[mesh] (b) the sharded wideband receiver's "
+                             f"tuples differ: {diff}")
+    if not outs["sharded"]:
+        raise AssertionError("[mesh] (b) no frame decoded")
+    log(f"[mesh] (b) wideband-64 periodic, {len(outs['sharded'])} tuples "
+        f"equal sharded ('ch'={MESH_CH}) and unsharded; ms per quantum "
+        f"{res['unsharded']['ms_per_quantum']:.3f} unsharded "
+        f"({res['unsharded']['x_real_time']:.2f}x real time), "
+        f"{res['sharded']['ms_per_quantum']:.3f} sharded "
+        f"({res['sharded']['x_real_time']:.2f}x) ({card})")
+    return res
+
+
+def mesh_rx_fast(x, frames, delays, dev, card):
+    """(c) smoke-64x20's signal: rx_fast_sharded ('ch'=MESH_CH) against
+    rx_fast (frames equal, the count that of the valid frames); channel 0
+    as one long channel through rx_time_sharded ('time'=MESH_TIME): its
+    frames once each, starts within one sample of i x 86,720."""
+    import torch
+    from opv_tpu_torch.parallel import rx_fast_sharded, rx_time_sharded
+    from opv_tpu_torch.rx.fast import rx_fast
+    want = rx_fast(x, max_frames=DENSE_MAX_FRAMES)
+    got, n = rx_fast_sharded(mesh_of(dev, {"ch": MESH_CH}), x,
+                             max_frames_per_shard=DENSE_MAX_FRAMES)
+    if not torch.equal(got, want["frames"]) \
+            or int(n) != int(want["frame_valid"].sum()):
+        raise AssertionError(f"[mesh] (c) rx_fast_sharded: frames equal "
+                             f"{torch.equal(got, want['frames'])}, n {int(n)} "
+                             f"against {int(want['frame_valid'].sum())}")
+    t = x.shape[1] // MESH_TIME * MESH_TIME
+    one = x[:1, :t]
+    tm = mesh_of(dev, {"time": MESH_TIME})
+    out = rx_time_sharded(tm, one, max_frames_per_shard=8)
+    owned = out["owned"][0]
+    starts = out["starts"][0][owned].cpu().numpy()
+    fr = out["frames"][0][owned]
+    if int(out["n"]) != FRAMES or not torch.equal(fr, frames) \
+            or np.abs(starts - delays[0] - np.arange(FRAMES) * SPF).max() > 1:
+        raise AssertionError(f"[mesh] (c) rx_time_sharded: n {int(out['n'])}, "
+                             f"starts {starts.tolist()}")
+    ms = dict(rx_fast=median_ms(lambda: rx_fast(
+        x, max_frames=DENSE_MAX_FRAMES), MESH_REPS),
+        rx_fast_sharded=median_ms(lambda: rx_fast_sharded(
+            mesh_of(dev, {"ch": MESH_CH}), x,
+            max_frames_per_shard=DENSE_MAX_FRAMES), MESH_REPS))
+    log(f"[mesh] (c) rx_fast_sharded ('ch'={MESH_CH}) frames equal rx_fast's, "
+        f"n {int(n)}; rx_time_sharded ('time'={MESH_TIME}) {FRAMES} frames "
+        f"once, starts within 1 of i x {SPF}; ms per call (median of "
+        f"{MESH_REPS}) rx_fast {ms['rx_fast']:.2f}, rx_fast_sharded "
+        f"{ms['rx_fast_sharded']:.2f} ({card})")
+    return dict(n=int(n), ms=ms)
+
+
+def mesh_grid_stream(x, frames, delays, dev, card):
+    """(d) ShardedStreamDemodulator on a (ch, time) = MESH_GRID mesh of the
+    card over smoke-64x20's 64 channels, fed in chunks that straddle the
+    windows: every frame once, byte-exact, at its position +-1; a
+    checkpoint written mid-stream resumes to the same tuples."""
+    import torch
+    from opv_tpu_torch.stream import (ShardedStreamDemodulator, load_state,
+                                      save_state)
+    mesh = mesh_of(dev, {"ch": MESH_GRID[0], "time": MESH_GRID[1]})
+    chunk = MESH_GRID_CHUNK
+
+    def run(sd, lo, hi):
+        out = []
+        for off in range(lo, hi, chunk):
+            out += sd.feed(x[:, off:min(off + chunk, hi)])
+        return out
+
+    n = x.shape[1]
+    cut = n // 2
+    t0 = time.perf_counter()
+    sd = ShardedStreamDemodulator(mesh, x.shape[0], max_frames_per_shard=4)
+    head = run(sd, 0, cut)
+    ck = pathlib.Path("build/chip_smoke")
+    ck.mkdir(parents=True, exist_ok=True)
+    save_state(str(ck / "mesh_grid"), sd.state_tree())
+    tail = run(sd, cut, n) + sd.flush()
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    out = head + tail
+    for c in range(x.shape[0]):
+        mine = [r for r in out if r[0] == c]
+        pos = np.array([r[4] for r in mine])
+        if [r[1] for r in mine] != [bytes(f) for f in frames.cpu().numpy()] \
+                or np.abs(pos - delays[c] - np.arange(FRAMES) * SPF).max() > 1:
+            raise AssertionError(f"[mesh] (d) channel {c}: {len(mine)} "
+                                 f"frames, positions {pos.tolist()[:4]}")
+    sd2 = ShardedStreamDemodulator(mesh, x.shape[0], max_frames_per_shard=4)
+    sd2.load_state_tree(load_state(str(ck / "mesh_grid"), sd2.state_tree()))
+    resumed = run(sd2, cut, n) + sd2.flush()
+    if resumed != tail:
+        raise AssertionError(f"[mesh] (d) resumed: "
+                             f"{first_difference(resumed, tail)}")
+    log(f"[mesh] (d) grid stream on a {MESH_GRID[0]} x {MESH_GRID[1]} mesh of "
+        f"the card, {x.shape[0]} ch, window {sd.window}, {chunk}-sample "
+        f"feeds: {len(out)} frames once each, byte-exact, at their "
+        f"positions; resumed from the mid-stream checkpoint to the same "
+        f"{len(tail)} tuples; {secs:.2f} s host clock for the stream "
+        f"({card})")
+    return dict(tuples=len(out), window=sd.window, seconds=secs)
+
+
+def mesh_processes(card):
+    """(e) chip_smoke.py as two worker processes on the card (gloo): each
+    checks its runs against its own single-process run; both ranks must
+    report the same tuples.  A worker's failure or timeout fails."""
+    port = free_port_tcp()
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--mesh-worker", str(rank), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(repo_root()))
+        for rank in range(2)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=MESH_WORKER_TIMEOUT_S)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f"[mesh] (e) worker rc {p.returncode}:\n"
+                                     f"{out[-3000:]}\n{err[-3000:]}")
+            results.append(json.loads(lines[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    a, b = results
+    if a["digest"] != b["digest"] or not (a["ok"] and b["ok"]):
+        raise AssertionError(f"[mesh] (e) ranks disagree: {a} {b}")
+    log(f"[mesh] (e) two processes on the card (gloo): (ch=2, time=2) grid "
+        f"decode and grid stream equal to the single-process runs, the "
+        f"locked engine (8 ch of stream-64, 'ch' across the processes) "
+        f"{a['locked_tuples']} tuples equal to the single-process engine's, "
+        f"both ranks the same tuples; per rank peak memory "
+        f"{a['peak_bytes'] / 2**30:.2f} / {b['peak_bytes'] / 2**30:.2f} GiB, "
+        f"{a['seconds']:.1f} / {b['seconds']:.1f} s ({card})")
+    return dict(ranks=results)
+
+
+def free_port_tcp() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_worker(rank: int, port: int, device: str = "cuda") -> int:
+    """One rank of (e): the (ch=2, time=2) grid decode on global_mesh, the
+    grid stream on a mesh whose 'time' axis spans the processes (halos and
+    slides over gloo) and the locked engine with 'ch' across the
+    processes, each against the same run on a single-process mesh.
+    Prints one JSON line."""
+    import hashlib
+    import torch
+    from opv_tpu_torch.parallel import (global_mesh, initialize_multihost,
+                                        rx_grid_sharded)
+    from opv_tpu_torch.parallel.mesh import Mesh
+    from opv_tpu_torch.stream import ShardedStreamDemodulator
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    initialize_multihost(f"127.0.0.1:{port}", num_processes=2,
+                         process_id=rank)
+    # two channels, their own frames, 3 frames a time shard
+    sigs = [transmission(6, dev, start=10 * c)[0] for c in range(2)]
+    t = 2 * 3 * SPF
+    x = torch.zeros((2, t), dtype=torch.complex64, device=dev)
+    for c, s in enumerate(sigs):
+        x[c, : min(t, len(s))] = s[:t]
+    gmesh = global_mesh(ch=2, time=2, devices=[dev] * 2)
+    got = rx_grid_sharded(gmesh, x, max_frames_per_shard=4)
+    single = rx_grid_sharded(mesh_of(dev, {"ch": 2, "time": 2}), x,
+                             max_frames_per_shard=4)
+    for k in single:
+        if not torch.equal(got[k].cpu(), single[k].cpu()):
+            raise AssertionError(f"rank {rank}: grid decode {k} differs")
+    cross = Mesh(np.array([[dev, dev], [dev, dev]], dtype=object),
+                 ("ch", "time"), ranks=[[0, 1], [0, 1]])
+
+    def stream(m):
+        sd = ShardedStreamDemodulator(m, 2, max_frames_per_shard=4)
+        out = []
+        for off in range(0, t, 70_001):
+            out += sd.feed(x[:, off:off + 70_001])
+        return out + sd.flush()
+
+    grid_tuples = stream(cross)
+    if grid_tuples != stream(mesh_of(dev, {"ch": 2, "time": 2})):
+        raise AssertionError(f"rank {rank}: grid stream tuples differ")
+    # the locked engine: channels 52-59 of stream-64 (4 clean, 4 gap-burst)
+    xs, frames, delays = synthesize(dev)
+    feed, _ = stream_feed(xs, frames, delays, dev)
+    feed = feed[STREAM_CLEAN - 4: STREAM_CLEAN + 4].contiguous()
+    del xs
+    lmesh = global_mesh(ch=8, time=1, devices=[dev] * 4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    locked, sd, _, _ = drive_stream(feed, dev, "float32", spy=False,
+                                    mesh=lmesh)
+    if sum(p.shape[0] for p in sd._buf.parts) != 4:
+        raise AssertionError(f"rank {rank}: {len(sd._buf.parts)} local shards")
+    ref, _, _, _ = drive_stream(feed, dev, "float32", spy=False)
+    if locked != ref:
+        raise AssertionError(f"rank {rank}: locked engine: "
+                             f"{first_difference(locked, ref)}")
+    digest = hashlib.sha256(repr((grid_tuples, locked)).encode()).hexdigest()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(json.dumps(dict(rank=rank, ok=True, digest=digest,
+                          grid_n=int(got["n"]), locked_tuples=len(locked),
+                          peak_bytes=torch.cuda.max_memory_allocated(dev),
+                          seconds=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+def phase_mesh(dev, card):
+    """Phase 14: the multi-device modes on the card, a mesh naming it
+    several times: (a) the sharded engine, (b) the sharded wideband
+    receiver, (c) the sharded rx_fast family, (d) the grid stream, (e) two
+    processes over gloo, (f) dryrun_multichip."""
+    import torch
+    from opv_tpu_torch.entry import dryrun_multichip
+    from opv_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    x, frames, delays = synthesize(dev)
+    registry.set_viterbi_radix(4)
+    registry.reset_launch_counts()
+    a, kept = mesh_stream(x, frames, delays, dev, card)
+    b = mesh_wideband(dev, card)
+    c = mesh_rx_fast(x, frames, delays, dev, card)
+    d = mesh_grid_stream(x, frames, delays, dev, card)
+    del x
+    t0 = time.perf_counter()
+    dryrun_multichip(MESH_CH)
+    torch.cuda.synchronize(dev)
+    f_secs = time.perf_counter() - t0
+    log(f"[mesh] (f) dryrun_multichip({MESH_CH}) on the card: {f_secs:.1f} s "
+        f"({card})")
+    launches = registry.launch_counts()
+    need = ("viterbi_r4", "symbol_soft[float32]", "symbol_soft[int8]")
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"[mesh] a kernel of the sharded paths never "
+                             f"launched: {launches}")
+    # each kept kernel call (shard 0's first of each program) against its
+    # twin, after the count
+    held = []
+    for arm, ops in kept.items():
+        held += hold_stream_kernels(ops, f"mesh {arm}")
+    for h in held:
+        rel = (f" (rel {h['max_rel_err']:.3g})" if "max_rel_err" in h
+               else ", bit-identical")
+        log(f"[mesh] {h['run']} {h['program']} block: {h['kernel']} at a "
+            f"shard's operands {h['shape']} against its twin, max |kernel - "
+            f"twin| {h['max_abs_err']:.4g}{rel}")
+    e = mesh_processes(card)
+    log(f"[mesh] launches over (a)-(d), (f) {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, a=a, b=b, c=c, d=d, e=e,
+                f_seconds=f_secs, held=held)
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import torch
@@ -4128,6 +4543,10 @@ def main() -> int:
     tracking = phase_tracking(dev, card, int_ops_per_s, cli["processes"])
     dense = phase_dense(dev, card)
     precision = phase_precision(dev, card, int_ops_per_s, tracking)
+    mesh = phase_mesh(dev, card)
+    phases = (("stream", stream), ("modes", modes), ("cli", cli),
+              ("wideband", wideband), ("tracking", tracking),
+              ("dense", dense), ("precision", precision), ("mesh", mesh))
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -4144,6 +4563,7 @@ def main() -> int:
         k["launches_tracking"] = tracking["launches"][k["name"]]
         k["launches_dense"] = dense["launches"][k["name"]]
         k["launches_precision"] = precision["launches"][k["name"]]
+        k["launches_mesh"] = mesh["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -4156,7 +4576,8 @@ def main() -> int:
             launches_wideband=wideband["launches"][key],
             launches_tracking=tracking["launches"][key],
             launches_dense=dense["launches"][key],
-            launches_precision=precision["launches"][key], **soft[name]))
+            launches_precision=precision["launches"][key],
+            launches_mesh=mesh["launches"][key], **soft[name]))
     kernels.append(dict(
         name="phase_track", route="cuda",
         source="opv_tpu_torch/csrc/phase_track.cu",
@@ -4169,6 +4590,7 @@ def main() -> int:
         launches_tracking=tracking["launches"]["phase_track"],
         launches_dense=dense["launches"]["phase_track"],
         launches_precision=precision["launches"]["phase_track"],
+        launches_mesh=mesh["launches"]["phase_track"],
         **cli["phase_track"]))
     # the tracking receiver's kernels: ms and bound at C = 64 (one chunk of
     # the golden mix); launches: the tracking phase's (b)-(d), GivenSync's
@@ -4185,10 +4607,8 @@ def main() -> int:
             replaces=replaces,
             launches=(tracking["routes_launches"] if given
                       else tracking["launches"])[name],
-            **{f"launches_{ph}": res["launches"][name] for ph, res in (
-                ("stream", stream), ("modes", modes), ("cli", cli),
-                ("wideband", wideband), ("tracking", tracking),
-                ("dense", dense), ("precision", precision))},
+            **{f"launches_{ph}": res["launches"][name]
+               for ph, res in phases},
             **row))
     # their float32 instantiations: ms and bound at C = 64 (phase 13 (a),
     # beside the float64 kernel timed in turns); launches: phase 13's
@@ -4207,26 +4627,21 @@ def main() -> int:
             replaces=replaces,
             launches=(precision["routes_launches"] if given
                       else precision["launches"])[name],
-            **{f"launches_{ph}": res["launches"][name] for ph, res in (
-                ("stream", stream), ("modes", modes), ("cli", cli),
-                ("wideband", wideband), ("tracking", tracking),
-                ("dense", dense), ("precision", precision))},
+            **{f"launches_{ph}": res["launches"][name]
+               for ph, res in phases},
             **row))
     key = "symbol_soft[float64]"
     kernels.append(dict(
         name=key, route="cuda", source="opv_tpu_torch/csrc/symbol_soft.cu",
         replaces="opv_tpu/ops/pallas/correlate.py:37",
         launches=precision["launches"][key],
-        **{f"launches_{ph}": res["launches"][key] for ph, res in (
-            ("stream", stream), ("modes", modes), ("cli", cli),
-            ("wideband", wideband), ("tracking", tracking),
-            ("dense", dense), ("precision", precision))},
+        **{f"launches_{ph}": res["launches"][key] for ph, res in phases},
         **precision["kernels"][key]))
     print(json.dumps({"kernels": kernels, "steady_ms": steady,
                       "stream": stream, "modes": modes, "cli": cli,
                       "wideband": wideband, "tracking": tracking,
                       "dense": dense, "precision": precision,
-                      "peak_bytes": peak}), flush=True)
+                      "mesh": mesh, "peak_bytes": peak}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4235,4 +4650,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -17,10 +17,23 @@ from opv_tpu_torch.config import CONFIG
 _TWO_PI = 2.0 * math.pi
 
 
+def needs_wide_sums(x: torch.Tensor) -> bool:
+    """Whether the CFO arithmetic on x takes its products and sums in
+    float64 and rounds once: on the card, where cuBLAS and the reduction
+    kernels choose their split by shape, so float32 sums of one channel
+    differ between a call of 64 channels and one of 8 (a sharded engine's
+    shard must compute what the whole bank computes).  The host's float32
+    sums here split per channel and stay as the JAX package's tests hold
+    them."""
+    return x.is_cuda
+
+
 def grid_energies(samples: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """(C, N) complex64 and (C, O) Hz -> (C, O) float32 total correlation
     energy of both tones over the first min(N/40, 1000) symbols.  The LO
-    tables are built in float64, then rounded to the samples' dtype."""
+    tables are built in float64, then rounded to the samples' dtype.
+    Where needs_wide_sums says so, the products and both sums are taken
+    in float64 and the energy rounded to the samples' precision once."""
     sps = CONFIG.samples_per_symbol
     c, n = samples.shape
     nsym = min(n, sps * CONFIG.cfo_max_symbols) // sps
@@ -30,8 +43,11 @@ def grid_energies(samples: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
                          CONFIG.freq_dev + offsets], dim=-1)       # (C, O, 2)
     ph = -(_TWO_PI / CONFIG.sample_rate) * freqs[..., None] * i
     e = torch.polar(torch.ones_like(ph), ph).to(samples.dtype)
+    if needs_wide_sums(samples):
+        sym, e = sym.to(torch.complex128), e.to(torch.complex128)
     corr = torch.einsum("csi,coti->csot", sym, e)
-    return (corr.real ** 2 + corr.imag ** 2).sum(dim=(1, 3))
+    energy = (corr.real ** 2 + corr.imag ** 2).sum(dim=(1, 3))
+    return energy.to(samples.real.dtype)
 
 
 def estimate_cfo_batch(samples: torch.Tensor) -> torch.Tensor:

@@ -108,7 +108,13 @@ def channelize_cols(x: torch.Tensor, kern, k: int,
     or numpy): the (C, M) basebands of the C channels whose kernel columns
     were passed, contiguous.  With the whole dft_kernel(k) this is
     channelize()."""
-    legs = polyphase_legs(x, k, taps_per_branch)            # (M, 2K)
+    return dft_columns(polyphase_legs(x, k, taps_per_branch), kern, k)
+
+
+def dft_columns(legs: torch.Tensor, kern, k: int) -> torch.Tensor:
+    """The DFT step of channelize_cols on polyphase_legs' (M, 2K) output:
+    the (C, M) basebands of the kernel columns passed (a mesh receiver's
+    shards on one device share the legs)."""
     kf = torch.as_tensor(kern).to(legs.device, legs.dtype)
     c = kf.shape[1]
     # the products of the (float32) legs and kernel are exact in float64;

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from opv_tpu_torch.config import CONFIG
 from opv_tpu_torch.core.framing import device_table
 from opv_tpu_torch.ops import registry
-from opv_tpu_torch.rx.cfo import estimate_cfo_batch
+from opv_tpu_torch.rx.cfo import estimate_cfo_batch, needs_wide_sums
 from opv_tpu_torch.rx.fast import (dense_soft, dense_sync, double_precision,
                                    phase_rot, real_columns, tone_vectors)
 from opv_tpu_torch.rx.frame_decoder import decode_payloads
@@ -213,16 +213,19 @@ def _extract_frames(soft: torch.Tensor, k0: torch.Tensor, n_frames: int):
     """(C, nsym) soft stream -> (payloads (C, F, 2144), sync_q (C, F),
     sync_raw (C, F)).  The stream is zero-padded so a sync anywhere in the
     window still yields full frames; frames reaching into the padding read
-    zeros and fail the sync-quality gate."""
+    zeros and fail the sync-quality gate.  The two 24-tap sums are taken in
+    float64 and rounded once, so a channel's sync quality does not depend
+    on how many channels share the call (BLAS picks its matrix-vector path
+    by shape)."""
     c, nsym = soft.shape
     span = n_frames * _FS
     padded = F.pad(soft, (0, span))
     w = _slice_rows(padded, torch.clamp(k0, 0, nsym), span)
     fr = w.reshape(c, n_frames, _FS)
-    sync_w = fr[:, :, :_SB]
-    pat = device_table(sync_pattern, soft.device, soft.dtype)
-    raw = sync_w @ pat
-    q = normalized_sync(raw, sync_w.abs().sum(-1))
+    sync_w = fr[:, :, :_SB].to(torch.float64)
+    pat = device_table(sync_pattern, soft.device, torch.float64)
+    raw = (sync_w * pat).sum(-1).to(soft.dtype)
+    q = normalized_sync(raw, sync_w.abs().sum(-1).to(soft.dtype))
     return fr[:, :, _SB:], q, raw
 
 
@@ -422,8 +425,15 @@ def refine_cfo_locked(samples: torch.Tensor, p0: torch.Tensor,
     correlations from the sync; consecutive symbols where the same tone
     dominates advance in phase by 2*pi*df*40/fs, so the power-weighted mean
     of the pairwise increments reads the residual offset df directly.  The
-    correction is clamped to the reference's AFC authority (+-2 kHz)."""
+    correction is clamped to the reference's AFC authority (+-2 kHz).
+
+    On the card (rx/cfo.py::needs_wide_sums) the correlations and sums run
+    in float64, complex64 samples and tone tables widened exactly, and the
+    offset is rounded to float32 once, so a channel's result does not
+    depend on how many channels share the call."""
     seg = _slice_rows(samples, p0, _SPF)
+    if needs_wide_sums(seg):
+        seg = seg.to(torch.complex128)
     c = seg.shape[0]
     e, incs = tone_vectors(freq_offset)
     corr = torch.einsum("cst,ctk->csk", seg.reshape(c, _FS, _SPS),
@@ -431,7 +441,7 @@ def refine_cfo_locked(samples: torch.Tensor, p0: torch.Tensor,
     p = corr.abs() ** 2
     dom = p[..., 1] > p[..., 0]
     sel = torch.where(dom, corr[..., 1], corr[..., 0])
-    same = (dom[:, 1:] == dom[:, :-1]).to(torch.float32)
+    same = (dom[:, 1:] == dom[:, :-1]).to(p.dtype)
     adv = phase_rot(incs)
     # the per-symbol kernel restarts at phase 0 each symbol, so rotate out
     # the dominant tone's own per-symbol advance

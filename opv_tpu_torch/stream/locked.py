@@ -36,8 +36,14 @@ and relaunches N when the resolve proves the predicted program wrong, so
 float buffers emit the synchronous engine's tuples; eager=True serves
 pure-steady blocks as soon as their owned slots are buffered; int8
 buffers adapt their step per channel (AGC); hunt_stride=2 hunts at half
-the dense resolution.  mesh (ROADMAP queue 1, item 12) is not ported and
-raises NotImplementedError.
+the dense resolution.
+
+mesh= splits the bank over a mesh's 'ch' axis (parallel/mesh.py): every
+device program runs once per 'ch' shard, on that shard's channels and
+device (_shard_map, the counterpart of the JAX engine's jit_s), and the
+per-channel results come back per shard and are joined in channel order;
+the host lifecycle is the same code, so the tuples are the unsharded
+engine's.
 
 On a CUDA device every block's outputs are copied to pinned host memory
 right behind its launch, and the host waits on an event recorded after
@@ -59,6 +65,8 @@ from opv_tpu_torch.rx.locked import (INT8_SCALE, fold_est_np,
                                      rx_locked_reacquire,
                                      rx_locked_reacquire_strided,
                                      rx_locked_retime, rx_locked_steady)
+from opv_tpu_torch.parallel.mesh import channel_shards, process_rank
+from opv_tpu_torch.parallel.multihost import all_gather
 from opv_tpu_torch.stream.state import to_device, to_host
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -68,35 +76,83 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 _FETCHED = ("frames", "metrics", "sync_q", "sync_raw", "decode_ok", "p0",
             "freq_offset", "frac", "burst_only")
 
+#: the engine's device programs: what a mesh engine runs once per shard
+_PROGRAMS = ("_zeros", "_with_pend", "_append", "_tail", "_row_of",
+             "_slide", "_chain_p0", "_steady", "_reacquire", "_retime",
+             "_stat_p", "_stat_c", "_requant")
+
+
+class _Shards:
+    """A per-channel value of a mesh engine: one tensor per 'ch' shard this
+    process holds (`parts`, in channel order)."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def shape(self):
+        """The local shards' rows, then the shards' common trailing dims."""
+        first = self.parts[0].shape
+        return (sum(p.shape[0] for p in self.parts),) + tuple(first[1:])
+
+
+def _regroup(outs: list):
+    """Per-shard program outputs -> one output of _Shards (tuples and dicts
+    element by element; None stays None)."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return tuple(_regroup([o[i] for o in outs]) for i in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _regroup([o[k] for o in outs]) for k in first}
+    return _Shards(outs)
+
 
 class _Fetch:
-    """A block's outputs on the device (`dev`) and their host copies.
+    """Device values (`dev`: tensors, or _Shards of a mesh engine) and
+    their host copies, the `keys` ones (a block's outputs by default).
 
     On a CUDA device the copies are queued on the stream right behind the
-    block's launch, non-blocking into pinned host tensors, with an event
-    recorded after them: waiting for this block never waits for a block
-    queued after it.  (The caching host allocator reuses a freed pinned
-    block once its copy has run, so steady streaming allocates no new
-    pinned memory.)  On the CPU the copies are taken when asked for."""
+    launch, non-blocking into pinned host tensors, with an event recorded
+    after them (one per device): waiting for this block never waits for a
+    block queued after it.  (The caching host allocator reuses a freed
+    pinned block once its copy has run, so steady streaming allocates no
+    new pinned memory.)  On the CPU the copies are taken when asked for.
+    `join` turns each key's per-shard host arrays into the whole bank's
+    (None: one part, taken as it is)."""
 
-    def __init__(self, dev: dict):
+    def __init__(self, dev: dict, keys=_FETCHED, join=None):
         self.dev = dev
-        self._host = {k: dev[k] for k in _FETCHED if k in dev}
-        self._event = None
-        first = self._host["p0"]
-        if first.is_cuda:
-            for k, t in self._host.items():
+        self._join = join
+        # new lists: the device values stay as they are (the pipelined
+        # engine chains p0, freq_offset and frac from them)
+        self._parts = {k: list(dev[k].parts if isinstance(dev[k], _Shards)
+                               else [dev[k]]) for k in keys if k in dev}
+        self._events = []
+        self._done = None
+        first = next(iter(self._parts.values()))
+        for j, t0 in enumerate(first):
+            if not t0.is_cuda:
+                continue
+            for parts in self._parts.values():
+                t = parts[j]
                 pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                self._host[k] = pinned.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(first.device))
+                parts[j] = pinned.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(t0.device))
+            self._events.append(event)
 
     def wait(self) -> dict:
-        """The outputs the lifecycle reads, as host numpy arrays."""
-        if self._event is None:
-            return {k: to_host(v) for k, v in self._host.items()}
-        self._event.synchronize()
-        return {k: v.numpy() for k, v in self._host.items()}
+        """The fetched values as host numpy arrays (of the whole bank)."""
+        if self._done is None:
+            for event in self._events:
+                event.synchronize()
+            host = {k: [p.numpy() if p.is_pinned() else to_host(p)
+                        for p in parts] for k, parts in self._parts.items()}
+            self._done = (self._join(host) if self._join is not None
+                          else {k: v[0] for k, v in host.items()})
+        return self._done
 
 
 class LockedStreamDemodulator:
@@ -195,11 +251,23 @@ class LockedStreamDemodulator:
         left after the overlap) and the host lifecycle time (host_ms) in
         block_stats; stats() aggregates them.
 
-        mesh is not ported and raises NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (channel-sharded engine) is not ported yet (ROADMAP "
-                "queue 1, item 12)")
+        mesh: a parallel.mesh.Mesh with a 'ch' axis (channels divisible by
+        its size); it replaces device=.  The window buffer is one (C/nch,
+        window/40, 80) tensor per 'ch' shard, on the first device of that
+        shard's row of the mesh (other axes are unused: the JAX engine
+        replicates the work over them, which computes the same values), and
+        every device program runs per shard: append, slide, the steady,
+        re-acquire and retime programs, the AGC statistics and requant.
+        Per-channel scalars and frame bytes come back per shard through the
+        same event-gated pinned copies and are joined in channel order, so
+        the host lifecycle, and the emitted tuples, are the unsharded
+        engine's.  feed() also takes a list of per-shard pieces, each on
+        its shard's device.  Across processes (parallel/multihost.py) every
+        process feeds the identical full chunk and keeps its own shards;
+        the per-channel results are gathered over gloo, so every process
+        runs the same lifecycle and emits the same tuples.  state_tree()
+        is placement-agnostic: a sharded checkpoint loads into an unsharded
+        engine, and back."""
         if hunt_stride > 1 and CONFIG.samples_per_symbol % hunt_stride:
             raise ValueError(f"hunt_stride {hunt_stride} must divide the "
                              f"{CONFIG.samples_per_symbol}-sample symbol")
@@ -213,8 +281,18 @@ class LockedStreamDemodulator:
                              f"'auto', got {dtype!r}")
         self.dtype = _DTYPES[dtype]
         self._int8 = self.dtype == torch.int8
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        self.mesh = mesh
+        if mesh is not None:
+            shards = channel_shards(mesh, channels)
+            me = process_rank()
+            self._spans = [(lo, hi) for lo, hi, _, r in shards if r == me]
+            self._devices = [d for _, _, d, r in shards if r == me]
+            self._multiproc = mesh.multiprocess
+            self.device = self._devices[0]
+        else:
+            self.device = torch.device(device)
+        if any(d.type == "cuda" for d in self._all_devices()) \
+                and not torch.cuda.is_available():
             raise RuntimeError(
                 "LockedStreamDemodulator(device='cuda') needs a CUDA device; "
                 "pass device='cpu' to run the plain twins on the host")
@@ -235,7 +313,15 @@ class LockedStreamDemodulator:
         self.sps = CONFIG.samples_per_symbol     # row width in samples
         assert self.window % self.sps == 0 and self.advance % self.sps == 0
 
-        self._buf = self._zeros()
+        if mesh is not None:
+            # every device program, once per 'ch' shard
+            for name in _PROGRAMS:
+                setattr(self, name, self._shard_map(getattr(self, name)))
+            self._where = _Shards([(hi - lo, d) for (lo, hi), d
+                                   in zip(self._spans, self._devices)])
+        else:
+            self._where = (channels, self.device)
+        self._buf = self._zeros(self._where)
         self._count = 0                 # valid samples in buffer
         self._pend = None               # (C, <40, 2) sub-row feed tail
         self._abs_base = 0              # absolute index of buffer sample 0
@@ -283,26 +369,89 @@ class LockedStreamDemodulator:
         self._burst_salvage = bool(single_frame_burst)
 
     # -- device programs (plain torch on the engine's device) ------------ #
+    #
+    # Each program (_PROGRAMS) computes on the tensors it is given, of any
+    # number of channels: under a mesh, _shard_map runs it once per 'ch'
+    # shard.
+
+    def _all_devices(self) -> list:
+        return self._devices if self.mesh is not None else [self.device]
+
+    def _shard_map(self, fn):
+        """fn, a program over one shard's tensors, as a program over the
+        engine's: each _Shards argument gives fn its shard's part, any
+        other argument is passed as it is; every shard is launched before
+        any is waited on.  The counterpart of the JAX engine's jit_s."""
+        def run(*args):
+            return _regroup([fn(*(a.parts[j] if isinstance(a, _Shards)
+                                  else a for a in args))
+                             for j in range(len(self._spans))])
+        return run
 
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
         """x on the engine's device (stream/state.py::to_device)."""
         return to_device(x, self.device)
 
-    def _put(self, arr) -> torch.Tensor:
-        """A device copy of a host array (never a view of it)."""
-        return self._to_device(torch.tensor(np.asarray(arr)))
+    def _put(self, arr):
+        """A device copy of a host (C, ...) array (never a view of it); a
+        mesh engine's is split over its shards."""
+        arr = np.asarray(arr)
+        if self.mesh is None:
+            return self._to_device(torch.tensor(arr))
+        return _Shards([to_device(torch.tensor(arr[lo:hi]), d)
+                        for (lo, hi), d in zip(self._spans, self._devices)])
+
+    def _join(self, host: dict) -> dict:
+        """{key: the local shards' host arrays} -> {key: the whole bank's
+        array}: concatenated in channel order, across processes gathered
+        over gloo first."""
+        if not self._multiproc:
+            return {k: np.concatenate(v) for k, v in host.items()}
+        got = all_gather((self._spans, host))
+        out = {}
+        for k in host:
+            pieces = sorted((lo, arr) for spans, h in got
+                            for (lo, _), arr in zip(spans, h[k]))
+            out[k] = np.concatenate([arr for _, arr in pieces])
+        return out
 
     def _get(self, out):
-        """Fetch a tuple of tensors to the host now: one synchronize, then
-        the copies (block results go through _Fetch instead)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return tuple(to_host(v) for v in out)
+        """Fetch a tuple of device values to the host now: one synchronize,
+        then the copies (block results go through _Fetch instead)."""
+        for d in self._all_devices():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        if self.mesh is None:
+            return tuple(to_host(v) for v in out)
+        host = self._join({i: [to_host(p) for p in v.parts]
+                           for i, v in enumerate(out)})
+        return tuple(host[i] for i in range(len(out)))
 
-    def _zeros(self) -> torch.Tensor:
-        return torch.zeros((self.channels, self.window // self.sps,
-                            2 * self.sps), dtype=self.dtype,
-                           device=self.device)
+    def _full(self, v) -> torch.Tensor:
+        """A copy of a per-channel device value as one (C, ...) tensor on
+        the engine's (first) device: a mesh engine's shards joined."""
+        if self.mesh is None:
+            return v.clone()
+        if not self._multiproc:
+            return torch.cat([p.to(self.device) for p in v.parts])
+        got = all_gather((self._spans, [p.cpu() for p in v.parts]))
+        pieces = sorted((lo, t) for spans, parts in got
+                        for (lo, _), t in zip(spans, parts))
+        return torch.cat([t for _, t in pieces]).to(self.device)
+
+    def _place(self, t: torch.Tensor):
+        """A whole-bank (C, ...) tensor as the engine's value: on its
+        device, or split over the mesh engine's shards."""
+        if self.mesh is None:
+            return t.to(self.device)
+        return _Shards([t[lo:hi].to(d).contiguous()
+                        for (lo, hi), d in zip(self._spans, self._devices)])
+
+    def _zeros(self, where) -> torch.Tensor:
+        """An empty window for (channels, device) `where`."""
+        c, dev = where
+        return torch.zeros((c, self.window // self.sps, 2 * self.sps),
+                           dtype=self.dtype, device=dev)
 
     def _conv(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         """Wire-scale pairs -> the buffer domain (int8: round half to even
@@ -315,7 +464,7 @@ class LockedStreamDemodulator:
     def _cplx(self, buf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         """(C, R, 80) rows -> (C, R*40) complex64: a view of float32 rows;
         bf16 and int8 rows widened, int8 rescaled to wire scale."""
-        f = buf.reshape(self.channels, -1, 2)
+        f = buf.reshape(buf.shape[0], -1, 2)
         if f.dtype != torch.float32:
             f = f.to(torch.float32)
         if self._int8:
@@ -326,25 +475,52 @@ class LockedStreamDemodulator:
         """(C, t) complex chunk -> (C, t, 2) wire-scale pairs."""
         return torch.view_as_real(x).to(self._wire)
 
-    def _append(self, x: torch.Tensor) -> None:
-        """Write (C, t, 2) wire-scale pairs (t a multiple of 40) as rows at
-        the buffer's fill point.  The caller appends only what fits."""
-        rows = self._conv(x, self._scale).reshape(self.channels, -1,
-                                                  2 * self.sps)
-        row = self._count // self.sps
-        if row + rows.shape[1] > self._buf.shape[1]:
+    def _with_pend(self, pend, x, ilv: bool) -> torch.Tensor:
+        """The sub-row carry, then the feed x, as wire-scale pairs."""
+        if not ilv:
+            x = self._pairs_c(x)
+        elif x.dtype != pend.dtype:
+            x = x.to(pend.dtype)
+        return torch.cat([pend, x], dim=1)
+
+    def _append(self, buf, x, lo: int, hi: int, ilv: bool, row: int, scale):
+        """Write samples [lo, hi) of the feed x (complex, or pairs when
+        `ilv`; hi - lo a multiple of 40) as rows of buf from `row` on.
+        The caller appends only what fits."""
+        chunk = x[:, lo:hi]
+        if not ilv:
+            chunk = torch.view_as_real(chunk)
+        rows = self._conv(chunk, scale).reshape(x.shape[0], -1, 2 * self.sps)
+        if row + rows.shape[1] > buf.shape[1]:
             raise RuntimeError(
                 f"append of {rows.shape[1]} rows at row {row} overruns the "
-                f"{self._buf.shape[1]}-row window")
-        self._buf[:, row:row + rows.shape[1]] = rows
+                f"{buf.shape[1]}-row window")
+        buf[:, row:row + rows.shape[1]] = rows
 
-    def _slide(self) -> None:
+    def _tail(self, x, lo: int, ilv: bool) -> torch.Tensor:
+        """Samples lo.. of the feed x as a wire-scale pairs copy (on the
+        CPU the feed may be a view of the caller's array)."""
+        tail = x[:, lo:] if ilv else self._pairs_c(x[:, lo:])
+        return tail.to(self._wire, copy=True)
+
+    def _row_of(self, pend) -> torch.Tensor:
+        """The sub-row carry zero-padded to one full row of pairs."""
+        return F.pad(pend, (0, 0, 0, self.sps - pend.shape[1]))
+
+    def _slide(self, buf) -> torch.Tensor:
         """Drop the advance's rows from the window head; zero the tail (a
         new buffer, as overlapping in-place row moves are undefined)."""
         adv = self.advance // self.sps
-        pad = torch.zeros((self.channels, adv, 2 * self.sps),
-                          dtype=self.dtype, device=self.device)
-        self._buf = torch.cat([self._buf[:, adv:], pad], dim=1)
+        pad = torch.zeros((buf.shape[0], adv, 2 * self.sps),
+                          dtype=buf.dtype, device=buf.device)
+        return torch.cat([buf[:, adv:], pad], dim=1)
+
+    def _chain_p0(self, p0, wrap, p0w):
+        """The previous block's p0 output moved to this block's window,
+        a drift-wrapped channel's taken from the host's p0w."""
+        if wrap is not None:
+            p0 = torch.where(wrap, p0w, p0)
+        return p0 % self.spf
 
     def _steady(self, buf, p0, foff, scale, frac, n_frames: int):
         return rx_locked_steady(buf, p0, foff, n_frames,
@@ -368,15 +544,22 @@ class LockedStreamDemodulator:
 
     # int8 AGC: level statistics and the step change
 
+    # (the power of a feed is summed in float64 and rounded once, so a
+    # channel's statistics do not depend on how many channels share the
+    # call: the reductions split their work by shape, on the card and on
+    # the host's threads)
+
     def _stat_p(self, ss, mx, x):        # (C, t, 2) pairs
         xf = x.to(torch.float32)
-        return (ss + (xf * xf).sum(dim=(1, 2)),
+        power = (xf * xf).sum(dim=(1, 2), dtype=torch.float64)
+        return (ss + power.to(torch.float32),
                 torch.maximum(mx, xf.abs().amax(dim=(1, 2))))
 
     def _stat_c(self, ss, mx, x):        # (C, t) complex
         r = x.real.to(torch.float32)
         i = x.imag.to(torch.float32)
-        return (ss + (r * r + i * i).sum(dim=1),
+        power = (r * r + i * i).sum(dim=1, dtype=torch.float64)
+        return (ss + power.to(torch.float32),
                 torch.maximum(mx, torch.maximum(r.abs().amax(dim=1),
                                                 i.abs().amax(dim=1))))
 
@@ -407,11 +590,12 @@ class LockedStreamDemodulator:
                 or (self._stat_snap is not None
                     and self._stat_snap[0] == key)):
             return
-        host = [torch.empty(self.channels, pin_memory=True).copy_(
-            t, non_blocking=True) for t in (self._stat_ss, self._stat_max)]
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        self._stat_snap = (key, host, event)
+        self._stat_snap = (key, self._fetch(
+            dict(ss=self._stat_ss, mx=self._stat_max), ("ss", "mx")))
+
+    def _fetch(self, dev: dict, keys=_FETCHED) -> _Fetch:
+        return _Fetch(dev, keys, self._join if self.mesh is not None
+                      else None)
 
     # ------------------------------------------------------------------ #
 
@@ -423,19 +607,11 @@ class LockedStreamDemodulator:
         so a sub-row tail pends until the next feed/flush.  Returns decoded
         frame tuples for every full window completed by this feed (and, in
         eager mode, for every block whose owned slots it completed)."""
-        if samples.shape[0] != self.channels:
-            raise ValueError(f"expected {self.channels} channels")
-        ilv = samples.ndim == 3
-        x = torch.as_tensor(samples)
-        x = self._to_device(x if ilv else x.to(torch.complex64))
+        x, ilv = self._ingest(samples)
         if self._pend is not None:
             # sub-row carry from the previous feed: unify in the pairs
             # domain (rare — only non-40-aligned feeds reach here)
-            if not ilv:
-                x, ilv = self._pairs_c(x), True
-            elif x.dtype != self._pend.dtype:
-                x = x.to(self._pend.dtype)
-            x = torch.cat([self._pend, x], dim=1)
+            x, ilv = self._with_pend(self._pend, x, ilv), True
             self._pend = None
         if self._agc and x.shape[1]:
             # per-channel level statistics on the device (a sub-row tail is
@@ -461,8 +637,8 @@ class LockedStreamDemodulator:
             if take < room:
                 take -= take % self.sps             # sub-row tail pends
             if take:
-                chunk = x[:, off:off + take]
-                self._append(chunk if ilv else torch.view_as_real(chunk))
+                self._append(self._buf, x, off, off + take, ilv,
+                             self._count // self.sps, self._scale)
                 self._count += take
                 off += take
             if self._count >= self.window:
@@ -470,11 +646,38 @@ class LockedStreamDemodulator:
             elif take == 0:
                 break
         if off < n:
-            tail = x[:, off:] if ilv else self._pairs_c(x[:, off:])
-            # a copy: on the CPU the feed may be a view of the caller's array
-            self._pend = tail.to(self._wire, copy=True)
+            self._pend = self._tail(x, off, ilv)
         out.extend(self._eager_poll())
         return out
+
+    def _ingest(self, samples):
+        """A feed on the engine's device(s): (x, interleaved).  A mesh
+        engine splits a whole-bank feed over its shards, or takes a list of
+        per-shard pieces as they are (each moved to its shard's device if
+        it is not there)."""
+        if self.mesh is not None and isinstance(samples, (list, tuple)):
+            if len(samples) != len(self._spans):
+                raise ValueError(f"expected {len(self._spans)} shard pieces")
+            ilv = samples[0].ndim == 3
+            parts = []
+            for piece, (lo, hi), d in zip(samples, self._spans,
+                                          self._devices):
+                if piece.shape[0] != hi - lo:
+                    raise ValueError(f"a piece of {piece.shape[0]} channels "
+                                     f"for the shard of {hi - lo}")
+                t = torch.as_tensor(piece)
+                parts.append(to_device(t if ilv else t.to(torch.complex64),
+                                       d))
+            return _Shards(parts), ilv
+        if samples.shape[0] != self.channels:
+            raise ValueError(f"expected {self.channels} channels")
+        ilv = samples.ndim == 3
+        x = torch.as_tensor(samples)
+        x = x if ilv else x.to(torch.complex64)
+        if self.mesh is None:
+            return self._to_device(x), ilv
+        return _Shards([to_device(x[lo:hi], d) for (lo, hi), d
+                        in zip(self._spans, self._devices)]), ilv
 
     def flush(self):
         """Process the buffered tail (zero-padded); frames whose payload
@@ -484,7 +687,8 @@ class LockedStreamDemodulator:
         drained = self._resolve_pending() if self.pipeline else []
         if self._pend is not None:       # zero-pad the sub-row carry in
             p = self._pend.shape[1]
-            self._append(F.pad(self._pend, (0, 0, 0, self.sps - p)))
+            self._append(self._buf, self._row_of(self._pend), 0, self.sps,
+                         True, self._count // self.sps, self._scale)
             self._count += p
             self._pend = None
         min_n = self.spf + CONFIG.samples_per_symbol
@@ -494,7 +698,7 @@ class LockedStreamDemodulator:
             results = self._process(valid_limit=self._count)
         self._abs_base += self._count
         self._count = 0
-        self._buf = self._zeros()
+        self._buf = self._zeros(self._where)
         return drained + results
 
     # ------------------------------------------------------------------ #
@@ -655,7 +859,7 @@ class LockedStreamDemodulator:
                                   put("keep", self.locked), self._scale,
                                   put("frac", self.frac))
             tag = "reacquire"
-        return _Fetch(out), wrap, p0_wrapped, tag
+        return self._fetch(out), wrap, p0_wrapped, tag
 
     def _resolve_block(self, out, buf, valid_limit, wrap, p0_wrapped, tag,
                        base, own_end=None):
@@ -686,7 +890,7 @@ class LockedStreamDemodulator:
                                    self._put_state("keep", ~dropped),
                                    self._scale,
                                    self._put_state("frac", self.frac))
-            results.extend(self._emit(_Fetch(out2), valid_limit, base,
+            results.extend(self._emit(self._fetch(out2), valid_limit, base,
                                       only=dropped, min_pos=self._dropped_at,
                                       own_end=own_end))
         warm = max(4.0, self._FOLD_WARM_FOLDS / self.block_frames)
@@ -738,7 +942,7 @@ class LockedStreamDemodulator:
     def _advance_window(self):
         # the slide builds a new buffer, so a window retained by a block in
         # flight (pipeline mode) is never written
-        self._slide()
+        self._buf = self._slide(self._buf)
         self._count -= self.advance
         self._abs_base += self.advance
         # grid positions repeat every frame, so after advancing by an exact
@@ -758,8 +962,8 @@ class LockedStreamDemodulator:
         # fed or reset since; else one synchronous fetch of both vectors
         snap = self._stat_snap
         if snap is not None and snap[0] == (self._stat_gen, self._stat_cnt):
-            snap[2].synchronize()
-            ss, mx = (h.numpy() for h in snap[1])
+            host = snap[1].wait()
+            ss, mx = host["ss"], host["mx"]
         else:
             ss, mx = self._get((self._stat_ss, self._stat_max))
         rms = np.sqrt(ss / self._stat_cnt)
@@ -821,11 +1025,10 @@ class LockedStreamDemodulator:
         host-computed p0_wrapped), the program from the last resolved lock
         state.  Queues work only: nothing here waits for the device."""
         dev = prev["out"].dev
-        p0_dev = dev["p0"]
-        if prev["wrap"].any():
-            p0_dev = torch.where(self._put(prev["wrap"]),
-                                 self._put(prev["p0w"]), p0_dev)
-        p0_dev = p0_dev % self.spf
+        wrapped = prev["wrap"].any()
+        p0_dev = self._chain_p0(dev["p0"],
+                                self._put(prev["wrap"]) if wrapped else None,
+                                self._put(prev["p0w"]) if wrapped else None)
         foff_dev, frac_dev = dev["freq_offset"], dev["frac"]
         self._snap_stats()
         if pred_locked.all():
@@ -837,7 +1040,7 @@ class LockedStreamDemodulator:
                                 self._put(pred_locked), self._scale,
                                 frac_dev)
             tag = "reacquire"
-        return _Fetch(o), np.zeros(self.channels, bool), self.p0, tag
+        return self._fetch(o), np.zeros(self.channels, bool), self.p0, tag
 
     def _resolve_pending(self):
         """Drain the block in flight (pipeline mode): resolve it and return
@@ -975,8 +1178,9 @@ class LockedStreamDemodulator:
 
     def state_tree(self) -> dict:
         """The engine's whole state as a flat dict (the JAX package's keys
-        and layouts): buf and pend are tensors on the device (copies), the
-        rest numpy.  Raises while a pipelined block is in flight."""
+        and layouts): buf and pend are tensors on the device (copies; a
+        mesh engine's shards joined on its first device), the rest numpy.
+        Raises while a pipelined block is in flight."""
         if self._pending is not None:
             raise RuntimeError(
                 "pipelined stream has a block in flight; checkpoint at a "
@@ -990,10 +1194,9 @@ class LockedStreamDemodulator:
         pend_len = 0
         if self._pend is not None:
             pend_len = self._pend.shape[1]
-            pend = F.pad(self._pend.to(self._wire),
-                         (0, 0, 0, self.sps - pend_len))
+            pend = self._full(self._row_of(self._pend))
         return dict(
-            buf=self._buf.clone(), count=np.int64(self._count),
+            buf=self._full(self._buf), count=np.int64(self._count),
             pend=pend, pend_len=np.int64(pend_len),
             abs_base=np.int64(self._abs_base),
             p0=self.p0.copy(), frac=self.frac.copy(),
@@ -1010,14 +1213,18 @@ class LockedStreamDemodulator:
         """Adopt a state produced by state_tree() of either package (e.g.
         via load_state).  Accepts all three buffer layouts: (C, window/40,
         80) window rows (current), (C, window, 2) IQ pairs, and (C, window)
-        complex (pre-wire-form checkpoints), in any buffer dtype."""
-        buf = torch.as_tensor(tree["buf"]).to(self.device)
+        complex (pre-wire-form checkpoints), in any buffer dtype, written
+        by an engine with or without a mesh (a mesh engine converts on the
+        host, then splits)."""
+        dev = self.device if self.mesh is None else torch.device("cpu")
+        buf = torch.as_tensor(tree["buf"]).to(dev)
         # the checkpoint's quantization step (per channel); pre-AGC
         # checkpoints carry no scale field — their int8 buffers are at the
         # fixed wire-full-scale step
         tree_scale = np.asarray(
             tree.get("scale", np.full(self.channels, INT8_SCALE)),
             np.float32)
+        scale = torch.tensor(tree_scale).to(dev)
         if buf.dim() == 2:
             buf = torch.view_as_real(buf).to(torch.float32)
         if buf.shape[-1] == 2:           # pairs -> window rows
@@ -1025,34 +1232,35 @@ class LockedStreamDemodulator:
         # cross-dtype adoption: int8 buffers hold wire/scale values, float
         # buffers hold wire-scale values — rescale across the domains
         if buf.dtype == torch.int8 and not self._int8:
-            buf = buf.to(torch.float32) * self._put(tree_scale)[:, None, None]
+            buf = buf.to(torch.float32) * scale[:, None, None]
         if self._int8:
             self._scale_np = tree_scale.copy()
             self._scale = self._put(self._scale_np)
         if self._int8 and buf.dtype != torch.int8:
             # wire-scale floats -> quantized at the adopted step
-            self._buf = self._conv(buf, self._scale).contiguous()
+            buf = self._conv(buf, scale).contiguous()
         else:
-            self._buf = buf.to(self.dtype, copy=True).contiguous()
+            buf = buf.to(self.dtype, copy=True).contiguous()
         count = int(tree["count"])
-        self._pend = None
+        pend = None
         rem = count % self.sps
         if rem:
             # pre-windowed checkpoints could hold a sub-row count; move the
             # partial row's samples to the pend carry (the next append
             # rewrites that row with pend + new data — identical values)
-            pairs = self._buf.reshape(self.channels, -1, 2)
-            self._pend = pairs[:, count - rem:count].to(self._wire,
-                                                       copy=True)
+            pairs = buf.reshape(self.channels, -1, 2)
+            pend = pairs[:, count - rem:count].to(self._wire, copy=True)
             if self._int8:               # buffer domain -> wire scale
-                self._pend = self._pend * self._scale[:, None, None]
+                pend = pend * scale[:, None, None]
             count -= rem
         self._count = count
         if "pend" in tree and int(tree.get("pend_len", 0)):
             p = int(tree["pend_len"])
-            assert self._pend is None    # aligned count when pend was saved
-            self._pend = torch.as_tensor(tree["pend"]).to(
-                self.device)[:, :p].to(self._wire, copy=True)
+            assert pend is None          # aligned count when pend was saved
+            pend = torch.as_tensor(tree["pend"]).to(dev)[:, :p].to(
+                self._wire, copy=True)
+        self._buf = self._place(buf)
+        self._pend = None if pend is None else self._place(pend)
         self._abs_base = int(tree["abs_base"])
         self.p0 = np.asarray(tree["p0"], np.int32).copy()
         self.frac = np.asarray(tree.get("frac", np.zeros(self.channels)),

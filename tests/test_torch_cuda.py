@@ -731,3 +731,94 @@ def test_coherent_rx_batch_on_card(cuda_dev):
     k = COHERENT_SYMBOLS
     err = np.abs(got["soft"][:k] - want["soft"][:k]).max()
     assert err <= COHERENT_RTOL * np.abs(want["soft"][:k]).max()
+
+
+# ------------------------------------------------- the mesh modes on the card
+
+
+def _card_mesh(dev, axes):
+    from opv_tpu_torch.parallel import make_mesh
+    return make_mesh(axes, devices=[dev] * int(np.prod(list(axes.values()))))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(pipeline=True),
+                                dict(dtype="int8")],
+                         ids=["float32", "pipelined", "int8_agc"])
+def test_sharded_engine_on_card_equals_unsharded(cuda_dev, kw):
+    """The locked engine on a ('ch'=4) mesh naming the card four times: the
+    unsharded engine's tuples on the card, exactly (channels 0-3 clean and
+    staggered, 4-7 the gap-burst pattern), K3 and K1 launched per shard."""
+    x, _ = _signal(5, [0, 997, 1994, 2991])
+    four, _ = impaired_feed(x.to(cuda_dev), cuda_dev)
+    feed = torch.cat([x.to(cuda_dev)[:, :four.shape[1]], four])
+
+    def run(**mesh):
+        sd = LockedStreamDemodulator(8, block_frames=2, device=cuda_dev,
+                                     **kw, **mesh)
+        out = []
+        for off in range(0, feed.shape[1], 123_457):
+            out += sd.feed(feed[:, off:off + 123_457])
+        return out + sd.flush(), sd
+
+    want, _ = run()
+    registry.reset_launch_counts()
+    got, sd = run(mesh=_card_mesh(cuda_dev, {"ch": 4}))
+    launches = registry.launch_counts()
+    assert got == want and len(want) >= 20
+    assert [tuple(p.shape) for p in sd._buf.parts] == \
+        [(2, sd.window // 40, 80)] * 4
+    rows = "int8" if kw.get("dtype") == "int8" else "float32"
+    assert launches["viterbi_r4"] > 0 and launches[f"symbol_soft[{rows}]"] > 0
+
+
+def test_sharded_rx_fast_on_card(cuda_dev):
+    """rx_fast_sharded ('ch'=4) and rx_time_sharded ('time'=2) on the card:
+    the unsharded rx_fast's frames and count; one K1 launch per shard."""
+    from opv_tpu_torch.parallel import rx_fast_sharded, rx_time_sharded
+    from opv_tpu_torch.rx.fast import rx_fast
+    x, frames = _signal(4, [0, 13, 27, 39])
+    x = x.to(cuda_dev)
+    want = rx_fast(x, max_frames=6)
+    registry.reset_launch_counts()
+    got, n = rx_fast_sharded(_card_mesh(cuda_dev, {"ch": 4}), x,
+                             max_frames_per_shard=6)
+    assert registry.launch_counts()["viterbi_r4"] == 4
+    assert torch.equal(got, want["frames"])
+    assert int(n) == int(want["n_decoded"]) == 16
+    one = x[:1, : 2 * (x.shape[1] // 2)]
+    out = rx_time_sharded(_card_mesh(cuda_dev, {"time": 2}), one,
+                          max_frames_per_shard=4)
+    owned = out["owned"][0]
+    assert int(out["n"]) == 4
+    assert torch.equal(out["frames"][0][owned].cpu(), frames)
+    starts = out["starts"][0][owned].cpu().numpy()
+    assert np.abs(starts - np.arange(4) * CONFIG.samples_per_frame).max() <= 1
+
+
+def test_grid_stream_on_card(cuda_dev, tmp_path):
+    """ShardedStreamDemodulator on a (ch=2, time=2) mesh of the card: every
+    frame once and byte-exact over feeds that straddle windows, and a
+    checkpoint taken mid-stream resumes to the same tuples."""
+    from opv_tpu_torch.stream import (ShardedStreamDemodulator, load_state,
+                                      save_state)
+    x, frames = _signal(6, [0, 311])
+    x = x.to(cuda_dev)
+    mesh = _card_mesh(cuda_dev, {"ch": 2, "time": 2})
+
+    def feed(sd, lo, hi):
+        out = []
+        for off in range(lo, hi, 70_001):
+            out += sd.feed(x[:, off:min(off + 70_001, hi)])
+        return out
+
+    sd = ShardedStreamDemodulator(mesh, 2, max_frames_per_shard=4)
+    cut = x.shape[1] // 2
+    head = feed(sd, 0, cut)
+    save_state(str(tmp_path / "ck"), sd.state_tree())
+    tail = feed(sd, cut, x.shape[1]) + sd.flush()
+    for c in range(2):
+        got = [r[1] for r in head + tail if r[0] == c]
+        assert got == [bytes(f) for f in frames.numpy()]
+    sd2 = ShardedStreamDemodulator(mesh, 2, max_frames_per_shard=4)
+    sd2.load_state_tree(load_state(str(tmp_path / "ck"), sd2.state_tree()))
+    assert feed(sd2, cut, x.shape[1]) + sd2.flush() == tail

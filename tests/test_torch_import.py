@@ -46,6 +46,12 @@ MODULES = [
     "opv_tpu_torch.stream.wideband",
     "opv_tpu_torch.stream.chunked",
     "opv_tpu_torch.stream.tracking",
+    "opv_tpu_torch.stream.sharded",
+    "opv_tpu_torch.parallel",
+    "opv_tpu_torch.parallel.mesh",
+    "opv_tpu_torch.parallel.sharded",
+    "opv_tpu_torch.parallel.grid",
+    "opv_tpu_torch.parallel.multihost",
     "opv_tpu_torch.entry",
     "opv_tpu_torch.io",
     "opv_tpu_torch.io.iq",
@@ -111,11 +117,13 @@ def test_top_level_exports_jax_names_lazily():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("sub", ["core", "rx", "tx", "io"])
+@pytest.mark.parametrize("sub", ["core", "rx", "tx", "io", "parallel",
+                                 "stream"])
 def test_subpackages_reexport_jax_names(sub):
-    """core/, rx/, tx/ and io/ re-export opv_tpu's names that the port has
-    (then the port's own), each an object of the port's module of that
-    subpackage."""
+    """core/, rx/, tx/, io/, parallel/ (its seven names) and stream/
+    (ShardedStreamDemodulator among them) re-export opv_tpu's names that
+    the port has (then the port's own), each an object of the port's
+    module of that subpackage."""
     import importlib
     jax_names = importlib.import_module(f"opv_tpu.{sub}").__all__
     port = importlib.import_module(f"opv_tpu_torch.{sub}")
@@ -170,6 +178,37 @@ def test_tracking_receiver_without_jax():
         sd = StreamingDemodulator(device="cpu")
         res = sd.feed(s) + sd.flush()
         assert [r[0] for r in res] == [bytes(f) for f in fr]
+        print("ok")
+    """)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+def test_sharded_receivers_without_jax():
+    """The sharded engine and the grid stream run on a mesh of CPU entries
+    with jax and opv_tpu absent, and emit the unsharded engine's tuples."""
+    r = _run("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["opv_tpu"] = None
+        import numpy as np, torch
+        import opv_tpu_torch as opv
+        from opv_tpu_torch.parallel import make_mesh
+        from opv_tpu_torch.stream import (LockedStreamDemodulator,
+                                          ShardedStreamDemodulator)
+        from opv_tpu_torch.tx.modulator import iq_int16_to_complex, tx_flush_zeros
+        fr = opv.build_bert_frame("W5NYV", frame_num=np.arange(3))
+        iq, _ = opv.modulate_frames(opv.encode_frame(torch.from_numpy(fr)))
+        s = iq_int16_to_complex(torch.cat([iq, tx_flush_zeros()]))
+        x = torch.stack([s, s.roll(311)])
+        mesh = make_mesh({"ch": 2}, devices=["cpu"] * 2)
+        a = LockedStreamDemodulator(2, block_frames=1, mesh=mesh)
+        b = LockedStreamDemodulator(2, block_frames=1, device="cpu")
+        out = a.feed(x) + a.flush()
+        assert out == b.feed(x) + b.flush() and len(out) == 6
+        sd = ShardedStreamDemodulator(make_mesh({"ch": 1, "time": 2},
+                                                devices=["cpu"] * 2), 1)
+        res = sd.feed(s[None]) + sd.flush()
+        assert [r[1] for r in res] == [bytes(f) for f in fr]
         print("ok")
     """)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr

@@ -227,5 +227,7 @@ def test_wideband_fast_engine_refusals():
     with pytest.raises(RuntimeError, match="engine='locked'"):
         rx.state_tree()
     assert rx.stats() == {} and rx.decoded == 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        WidebandT(4, engine="fast", mesh=object(), device="cpu")
+    from opv_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="mesh= requires engine='locked'"):
+        WidebandT(4, engine="fast", device="cpu",
+                  mesh=make_mesh({"ch": 2}, devices=["cpu"] * 2))

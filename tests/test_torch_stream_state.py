@@ -121,10 +121,15 @@ def test_tensor_and_numpy_feeds_agree():
 
 
 def test_options_not_ported_raise():
-    """The channel-sharded engine is not ported: mesh= raises, naming its
-    roadmap item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(2, mesh=object())
+    """mesh= (the channel-sharded engine) is ported: an engine on a
+    ('ch'=2) mesh of CPU entries holds one window shard per entry, and a
+    mesh it cannot use raises ValueError as the JAX engine does."""
+    from opv_tpu_torch.parallel import make_mesh
+    sd = _port(2, mesh=make_mesh({"ch": 2}, devices=["cpu"] * 2))
+    assert [tuple(p.shape) for p in sd._buf.parts] == \
+        [(1, sd.window // 40, 80)] * 2
+    with pytest.raises(ValueError, match="'ch' axis"):
+        _port(2, mesh=make_mesh({"time": 2}, devices=["cpu"] * 2))
 
 
 @pytest.fixture(scope="module")

@@ -235,8 +235,14 @@ def test_feed_casts_complex128_and_tensors():
 
 
 def test_unported_modes_raise_with_their_items():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        WidebandT(4, mesh=object(), device="cpu")
+    """mesh= is ported (tests/test_torch_locked_mesh.py): a mesh without a
+    'ch' axis, or one that does not divide K, raises ValueError as the
+    JAX receiver's engine does; so does an unknown engine."""
+    from opv_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="'ch' axis"):
+        WidebandT(4, mesh=make_mesh({"time": 2}, devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="divisible"):
+        WidebandT(4, mesh=make_mesh({"ch": 3}, devices=["cpu"] * 3))
     with pytest.raises(ValueError):
         WidebandT(4, engine="dense", device="cpu")
 
