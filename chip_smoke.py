@@ -225,7 +225,22 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               with 'ch' across the processes, each equal to its
               single-process run, both ranks the same tuples; (f)
               dryrun_multichip(8)
- 15. the kernels JSON line (launches: the main path's, for phase_track the
+ 15. ber      the receiver-quality tools (opv_tpu_torch/tools/) on the card:
+              (a) ber_headtohead at its defaults (Eb/N0 5, 6, 7, 8, 10 dB,
+              seeds 42-46, 200 frames, 2000 lead samples) held to
+              BER_r05.json: the tracking rows equal to the reference's
+              (per-seed BER to 6 decimals, decoded, FER, locks, lock drops,
+              sync misses), the six locked-family rows no worse than the
+              JAX rows by more than 5% (2e-5 absolute at 10 dB), decoding
+              within a frame a capture; every row printed; (b)
+              TestWaterfallTiming's fold convergence at 7.5 dB and
+              checkpoint resume at 8 dB; (c) timing_pin_probe at 7 dB,
+              block_frames 4, modes free, batch, truth and truth_f0; (d)
+              gen_timing_template.compute() on the card within 1e-4 of
+              _PB_BIAS (and its float64 value); launches over (a)-(d); (e)
+              one capture made on the card equal byte for byte to the CPU
+              twin's
+ 16. the kernels JSON line (launches: the main path's, for phase_track the
      cli phase's opv_mod runs, for track_symbols and sync_scan[SoftSync]
      the tracking phase's (b)-(d), for sync_scan[GivenSync] its route's
      in (a); launches_stream: the stream phase's two runs;
@@ -234,7 +249,9 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      wideband phase's runs (b)-(e); launches_tracking: the tracking
      phase's (b)-(d); launches_dense: the dense phase's runs (a)-(d)
      without its stage timings; launches_precision: the precision phase's
-     (b)-(e); launches_mesh: the mesh phase's (a)-(d) and (f); the float32 instantiations of track_symbols and sync_scan
+     (b)-(e); launches_mesh: the mesh phase's (a)-(d) and (f);
+     launches_ber: the ber phase's (a)-(d); the float32 instantiations of
+     track_symbols and sync_scan
      and the float64 one of symbol_soft their own rows, launches from
      phase 13 (b)-(e), GivenSync's from its float32 route), the card line,
      then the result line
@@ -470,6 +487,24 @@ MESH_GRID = (8, 4)
 MESH_GRID_CHUNK = 300_001
 MESH_REPS = 3
 MESH_WORKER_TIMEOUT_S = 420
+# phase 15 (ber): the head-to-head waterfall at its defaults, held to the
+# committed artifact of the JAX tool (the reference binary's rows)
+BER_AGAINST = "BER_r05.json"
+BER_EBN0 = (5.0, 6.0, 7.0, 8.0, 10.0)
+BER_SEEDS = (42, 43, 44, 45, 46)
+BER_FRAMES = 200
+BER_LEAD = 2000
+# tests/test_locked_stream.py::TestWaterfallTiming on the card:
+# (frames, Eb/N0 dB, noise seed) of the fold-convergence and checkpoint runs
+WF_FOLD = (60, 7.5, 11)
+WF_RESUME = (24, 8.0, 9)
+WF_LEAD = 2000
+WF_BF = 4
+# timing_pin_probe's run and the template's bound on the card (float32
+# correlator rounding moves the derivation by a few 1e-5)
+PROBE_EBN0 = 7.0
+PROBE_BF = 4
+PB_BIAS_TOL = 1e-4
 COHERENT_LINES = ("Estimated carrier offset: 1430.0 Hz",
                   "Demodulated 6604 symbols, final AFC offset: 2000.0 Hz",
                   "Summary: 0 frames (0 perfect, 0 errors)",
@@ -4486,6 +4521,159 @@ def phase_mesh(dev, card):
                 f_seconds=f_secs, held=held)
 
 
+def waterfall_signal(n_frames: int, ebn0_db: float, seed: int, dev,
+                     lead: int = 0) -> np.ndarray:
+    """tests/test_locked_stream.py's waterfall feed: the fast TX of
+    n_frames BERT frames on the card after `lead` zeros, plus complex AWGN
+    from default_rng(seed) at ebn0_db on the host, as (1, N) complex64."""
+    from opv_tpu_torch.tools.capture import fast_signal, noise_power
+    _, s, sig_pow = fast_signal(n_frames, dev)
+    x = np.concatenate([np.zeros(lead, np.complex64), s]).astype(np.complex128)
+    rng = np.random.default_rng(seed)
+    x += (rng.standard_normal(len(x)) + 1j * rng.standard_normal(len(x))) \
+        * np.sqrt(noise_power(sig_pow, ebn0_db) / 2)
+    return x.astype(np.complex64)[None, :]
+
+
+def waterfall_timing(dev, card):
+    """The card counterparts of TestWaterfallTiming's first two tests: the
+    cross-block fold accumulator converges the grid at 7.5 dB, and a
+    checkpoint taken mid-warm-up at 8 dB resumes to the uninterrupted
+    tuples."""
+    import tempfile
+    from opv_tpu_torch.stream import (LockedStreamDemodulator, load_state,
+                                      save_state)
+    nf, db, seed = WF_FOLD
+    x = waterfall_signal(nf, db, seed, dev, lead=WF_LEAD)
+    sd = LockedStreamDemodulator(1, block_frames=WF_BF, device=dev)
+    got = [r for r in sd.feed(x) + sd.flush() if r[0] == 0]
+    tail = np.array([r[4] for r in got[-(len(got) // 3):]], np.int64)
+    err = (tail - WF_LEAD) % SPF
+    err = np.where(err > SPF // 2, err - SPF, err)
+    if len(got) < nf - 2 or sd._fold_w[0] <= 8.0 or np.abs(err).max() > 1:
+        raise AssertionError(
+            f"[ber] fold convergence at {db} dB: {len(got)}/{nf} frames, "
+            f"fold depth {sd._fold_w[0]:.2f}, tail grid errors "
+            f"{np.unique(err)}")
+    log(f"[ber] waterfall timing: fold convergence at {db} dB, "
+        f"{len(got)}/{nf} frames, fold depth {sd._fold_w[0]:.2f}, tail grid "
+        f"errors {sorted(set(err.tolist()))} ({card})")
+    nf, db, seed = WF_RESUME
+    x = waterfall_signal(nf, db, seed, dev)
+    cut = 15 * SPF + 1000                    # mid-warm-up
+    sd = LockedStreamDemodulator(1, block_frames=WF_BF, device=dev)
+    out_a = sd.feed(x[:, :cut])
+    if not sd._fold_w[0] > 0:
+        raise AssertionError("[ber] the fold accumulator is not warm at the "
+                             "checkpoint")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_state(f"{tmp}/wf", sd.state_tree())
+        sd2 = LockedStreamDemodulator(1, block_frames=WF_BF, device=dev)
+        sd2.load_state_tree(load_state(f"{tmp}/wf", sd.state_tree()))
+    out_b = sd2.feed(x[:, cut:]) + sd2.flush()
+    ref = LockedStreamDemodulator(1, block_frames=WF_BF, device=dev)
+    want = ref.feed(x) + ref.flush()
+    if out_a + out_b != want:
+        raise AssertionError(f"[ber] the resumed engine at {db} dB is not "
+                             f"the uninterrupted one: "
+                             f"{first_difference(out_a + out_b, want)}")
+    log(f"[ber] waterfall timing: checkpoint at sample {cut} of {nf} frames "
+        f"at {db} dB (fold depth {sd._fold_w[0]:.2f}) resumed to the "
+        f"uninterrupted {len(want)} tuples")
+    return dict(fold_frames=len(got), fold_tail_errors=sorted(set(
+        err.tolist())), resume_tuples=len(want))
+
+
+def phase_ber(dev, card):
+    """Phase 15: the receiver-quality tools on the card.  (a)
+    ber_headtohead at its defaults held to BER_AGAINST (the tracking rows
+    equal the reference's, the locked family within its bound of the JAX
+    rows); (b) TestWaterfallTiming's fold convergence and checkpoint
+    resume; (c) timing_pin_probe at 7 dB, block_frames 4, all four modes;
+    (d) gen_timing_template.compute() within PB_BIAS_TOL of _PB_BIAS; then
+    (e) one head-to-head capture made on the card equal byte for byte to
+    the CPU twin's."""
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.rx.locked import _PB_BIAS
+    from opv_tpu_torch.tools import ber_headtohead as bh
+    from opv_tpu_torch.tools import capture
+    from opv_tpu_torch.tools.gen_timing_template import compute
+    from opv_tpu_torch.tools.timing_pin_probe import MODES, probe
+    t_phase = time.perf_counter()
+    registry.set_viterbi_radix(4)
+    registry.reset_launch_counts()
+    against = json.loads((repo_root() / BER_AGAINST).read_text())
+    t0 = time.perf_counter()
+    out = bh.headtohead(BER_EBN0, BER_FRAMES, BER_SEEDS, BER_LEAD, dev,
+                        against, progress=lambda m: log(f"[ber] (a) {m}"))
+    a_secs = time.perf_counter() - t0
+    bad = bh.check(out)
+    for ent in out["compare"]:
+        for key in ("tracking",) + bh.LOCKED_ROWS:
+            row = ent[key]
+            extra = "".join(f", {f} {row[f][0]} / {row[f][1]}"
+                            for f in bh.EVENT_COUNTS if f in row)
+            log(f"[ber] (a) {ent['ebn0_db']:4.1f} dB {key}: BER "
+                f"{row['ber'][0]:.6g} against {row['against']}'s "
+                f"{row['ber'][1]:.6g}, FER {row['fer'][0]:.3f} / "
+                f"{row['fer'][1]:.3f}, decoded {row['decoded'][0]} / "
+                f"{row['decoded'][1]}, per seed "
+                f"{row['ber_per_seed'][0]}{extra}")
+    log(f"[ber] (a) ber_headtohead {len(BER_EBN0)} points x "
+        f"{len(BER_SEEDS)} captures of {BER_FRAMES} frames: {a_secs:.1f} s "
+        f"({card})")
+    if bad:
+        raise AssertionError("[ber] the port does not hold to "
+                             f"{BER_AGAINST}: " + "; ".join(bad))
+    t0 = time.perf_counter()
+    b = waterfall_timing(dev, card)
+    b_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = probe(PROBE_EBN0, PROBE_BF, BER_FRAMES, BER_SEEDS, BER_LEAD, 60,
+              MODES, dev)
+    c_secs = time.perf_counter() - t0
+    for mode, row in c["modes"].items():
+        if not all(0.0 <= row[k] <= 1.0 for k in ("ber", "ber_steady_tail")):
+            raise AssertionError(f"[ber] timing_pin_probe {mode}: {row}")
+        log(f"[ber] (c) timing_pin_probe {PROBE_EBN0} dB bf {PROBE_BF} "
+            f"{mode}: BER {row['ber']:.4e}, steady tail "
+            f"{row['ber_steady_tail']:.4e}, tail per seed "
+            f"{row['tail_per_seed']}")
+    log(f"[ber] (c) anchor {c['anchor_truth']:.4f}, {c_secs:.1f} s")
+    bias32, bias64 = compute(device=dev), compute(device=dev, dtype="float64")
+    log(f"[ber] (d) gen_timing_template on the card: {bias32:.10f} "
+        f"(float64 {bias64:.10f}); _PB_BIAS {_PB_BIAS:.10f}")
+    if abs(bias32 - _PB_BIAS) >= PB_BIAS_TOL:
+        raise AssertionError(f"[ber] the card's timing template {bias32} is "
+                             f"not within {PB_BIAS_TOL} of {_PB_BIAS}")
+    launches = registry.launch_counts()
+    need = ("viterbi_r4", "symbol_soft[float32]", "symbol_soft[int8]",
+            "phase_track", "track_symbols", "sync_scan[SoftSync]")
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"[ber] a kernel of the BER paths never "
+                             f"launched: {launches}")
+    # (e) after the count: the capture's TX on the card against the twin
+    t0 = time.perf_counter()
+    _, s_card, p_card = capture.exact_signal(BER_FRAMES, dev)
+    _, s_cpu, p_cpu = capture.exact_signal(BER_FRAMES, "cpu")
+    w_card = capture.headtohead_wire(s_card, p_card, 42, 7.0, BER_LEAD)
+    w_cpu = capture.headtohead_wire(s_cpu, p_cpu, 42, 7.0, BER_LEAD)
+    if w_card.tobytes() != w_cpu.tobytes():
+        raise AssertionError("[ber] the 7 dB seed-42 capture made on the "
+                             "card is not the CPU twin's")
+    log(f"[ber] (e) the 7 dB seed-42 capture ({len(w_card)} samples) made on "
+        f"the card equals the CPU twin's byte for byte "
+        f"({time.perf_counter() - t0:.1f} s)")
+    secs = time.perf_counter() - t_phase
+    log(f"[ber] launches over (a)-(d) {launches}; phase {secs:.1f} s "
+        f"((a) {a_secs:.1f}, (b) {b_secs:.1f}, (c) {c_secs:.1f})")
+    rows = {r["ebn0_db"]: {k: v["ber"] for k, v in r.items()
+                           if isinstance(v, dict)} for r in out["rows"]}
+    return dict(launches=launches, rows=rows, waterfall_timing=b,
+                probe=c, template=dict(float32=bias32, float64=bias64),
+                seconds=round(secs, 1))
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import torch
@@ -4544,9 +4732,11 @@ def main() -> int:
     dense = phase_dense(dev, card)
     precision = phase_precision(dev, card, int_ops_per_s, tracking)
     mesh = phase_mesh(dev, card)
+    ber = phase_ber(dev, card)
     phases = (("stream", stream), ("modes", modes), ("cli", cli),
               ("wideband", wideband), ("tracking", tracking),
-              ("dense", dense), ("precision", precision), ("mesh", mesh))
+              ("dense", dense), ("precision", precision), ("mesh", mesh),
+              ("ber", ber))
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -4564,6 +4754,7 @@ def main() -> int:
         k["launches_dense"] = dense["launches"][k["name"]]
         k["launches_precision"] = precision["launches"][k["name"]]
         k["launches_mesh"] = mesh["launches"][k["name"]]
+        k["launches_ber"] = ber["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -4577,7 +4768,8 @@ def main() -> int:
             launches_tracking=tracking["launches"][key],
             launches_dense=dense["launches"][key],
             launches_precision=precision["launches"][key],
-            launches_mesh=mesh["launches"][key], **soft[name]))
+            launches_mesh=mesh["launches"][key],
+            launches_ber=ber["launches"][key], **soft[name]))
     kernels.append(dict(
         name="phase_track", route="cuda",
         source="opv_tpu_torch/csrc/phase_track.cu",
@@ -4591,6 +4783,7 @@ def main() -> int:
         launches_dense=dense["launches"]["phase_track"],
         launches_precision=precision["launches"]["phase_track"],
         launches_mesh=mesh["launches"]["phase_track"],
+        launches_ber=ber["launches"]["phase_track"],
         **cli["phase_track"]))
     # the tracking receiver's kernels: ms and bound at C = 64 (one chunk of
     # the golden mix); launches: the tracking phase's (b)-(d), GivenSync's
@@ -4641,7 +4834,8 @@ def main() -> int:
                       "stream": stream, "modes": modes, "cli": cli,
                       "wideband": wideband, "tracking": tracking,
                       "dense": dense, "precision": precision,
-                      "mesh": mesh, "peak_bytes": peak}), flush=True)
+                      "mesh": mesh, "ber": ber, "peak_bytes": peak}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ from chip_smoke import (COHERENT_RTOL, COHERENT_SYMBOLS,  # noqa: E402
                         TRACK_EDGE_CASES, TRACK_F32_EDGE_CASES,
                         PRECISION_Q_TOL, track_edge_case, track_inputs,
                         viterbi_inputs, wideband_k4)
+from test_scripts import iio_stubs  # noqa: E402,F401  (the stubbed radio)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.core.framing import build_bert_frame, encode_frame  # noqa: E402
 from opv_tpu_torch.ops import registry  # noqa: E402
@@ -822,3 +823,26 @@ def test_grid_stream_on_card(cuda_dev, tmp_path):
     sd2 = ShardedStreamDemodulator(mesh, 2, max_frames_per_shard=4)
     sd2.load_state_tree(load_state(str(tmp_path / "ck"), sd2.state_tree()))
     assert feed(sd2, cut, x.shape[1]) + sd2.flush() == tail
+
+
+@pytest.fixture
+def golden_dir():
+    """tests/conftest.py's, for runs without it (--noconftest)."""
+    return pathlib.Path(__file__).resolve().parent / "golden"
+
+
+def test_pluto_rx_script_on_card(cuda_dev, iio_stubs):
+    """scripts/opv-pluto-rx.sh over the port's demodulator on the card
+    (the stubbed radio of tests/test_scripts.py replays bert3)."""
+    import subprocess
+    env, tmp = iio_stubs
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = {**env, "PYTHONPATH": str(repo),
+           "OPV_DEMOD": f"{sys.executable} -m opv_tpu_torch.cli.opv_demod "
+                        f"--device cuda"}
+    r = subprocess.run(["bash", str(repo / "scripts" / "opv-pluto-rx.sh")],
+                       env=env, capture_output=True, text=True, timeout=600,
+                       cwd=repo)
+    assert r.returncode == 0, r.stderr[-500:]
+    assert "Summary: 3 frames (3 perfect, 0 errors)" in r.stderr
+    assert "altvoltage0 frequency 435000000" in (tmp / "attr.log").read_text()

@@ -64,6 +64,12 @@ MODULES = [
     "opv_tpu_torch.cli.opv_mod",
     "opv_tpu_torch.cli.opv_demod",
     "opv_tpu_torch.cli.opv_modem",
+    "opv_tpu_torch.tools",
+    "opv_tpu_torch.tools.capture",
+    "opv_tpu_torch.tools.ber_headtohead",
+    "opv_tpu_torch.tools.ber_curve",
+    "opv_tpu_torch.tools.timing_pin_probe",
+    "opv_tpu_torch.tools.gen_timing_template",
 ]
 
 
@@ -78,7 +84,8 @@ def test_port_imports_no_jax():
         for m in {MODULES!r}:
             importlib.import_module(m)
         bad = sorted(k for k in sys.modules
-                     if k.split(".")[0] in ("jax", "jaxlib", "opv_tpu"))
+                     if k.split(".")[0] in ("jax", "jaxlib", "opv_tpu",
+                                            "tools"))
         assert not bad, bad
         assert "triton" not in sys.modules
         print("ok")
@@ -234,6 +241,25 @@ def test_dense_and_coherent_receivers_without_jax():
         assert [r[1] for r in res] == [bytes(f) for f in fr]
         out = opv.rx_batch(s.to(torch.complex128), coherent=True, device="cpu")
         assert out["decoded"] == 0 and int(out["n_symbols"]) == len(s) // 40
+        print("ok")
+    """)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+def test_tools_without_jax():
+    """The BER tools run on CPU tensors with jax, opv_tpu and the JAX
+    repo's tools/ absent."""
+    r = _run("""
+        import sys
+        for m in ("jax", "opv_tpu", "tools"):
+            sys.modules[m] = None
+        from opv_tpu_torch.tools import ber_curve, ber_headtohead, capture
+        rows = ber_curve.sweep([10.0], 2, 42, "locked", "cpu")
+        assert rows[0]["frames"] == 2 and rows[0]["ber"] < 0.01
+        truth, s, p = capture.exact_signal(2, "cpu")
+        sw = capture.wire_to_complex(capture.headtohead_wire(s, p, 42, 10.0, 100))
+        row = ber_headtohead.run_locked(sw, truth, "cpu")
+        assert row["decoded"] == 2
         print("ok")
     """)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
