@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (opv_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--records DIR] [--commit LABEL]
 
 Phases (one line each; any failure exits non-zero, nothing is caught):
   1. device   the card's name and power limit; TF32 matmuls must be off
@@ -240,7 +240,24 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               _PB_BIAS (and its float64 value); launches over (a)-(d); (e)
               one capture made on the card equal byte for byte to the CPU
               twin's
- 16. the kernels JSON line (launches: the main path's, for phase_track the
+ 16. tools    the measurement tools (opv_tpu_torch/tools/) in this process
+              through their main(argv), at production width: stage_bench
+              at smoke-64x20 on float32, int8 and float64 rows, radix 4
+              and 2 (every steady block decodes 1280 frames, int8 and
+              float64 rows the float32 rows' frames; K3 float32 / int8 and
+              K1 medians within 1.5x of phases 3-4's); tx_bench at 64 x 20
+              (batched modulate equal to the unbatched one, fast and exact
+              IQ decoding to their frames); wideband_bench at K = 4 and
+              64 synchronous, K = 64 pipelined and K = 64 bursty (every
+              active channel's frames each window); modem_bench --both
+              --frames 20 --burst 20 (opv_modem -l as processes on free
+              ports, every frame back in order); scaling_bench over 1, 2,
+              4 and 8 time shards of the card and --shard-cost; the
+              records (STAGE_TORCH.json, TX_TORCH.json,
+              WIDEBAND_TORCH.json, MODEM_TORCH.json, SCALING_TORCH.json)
+              go to --records (build/chip_smoke/tools by default) and
+              name --commit
+ 17. the kernels JSON line (launches: the main path's, for phase_track the
      cli phase's opv_mod runs, for track_symbols and sync_scan[SoftSync]
      the tracking phase's (b)-(d), for sync_scan[GivenSync] its route's
      in (a); launches_stream: the stream phase's two runs;
@@ -250,7 +267,8 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      phase's (b)-(d); launches_dense: the dense phase's runs (a)-(d)
      without its stage timings; launches_precision: the precision phase's
      (b)-(e); launches_mesh: the mesh phase's (a)-(d) and (f);
-     launches_ber: the ber phase's (a)-(d); the float32 instantiations of
+     launches_ber: the ber phase's (a)-(d); launches_tools: the tools
+     phase's in-process runs; the float32 instantiations of
      track_symbols and sync_scan
      and the float64 one of symbol_soft their own rows, launches from
      phase 13 (b)-(e), GivenSync's from its float32 route), the card line,
@@ -276,6 +294,11 @@ import numpy as np
 # in-process CLI runs and free ports, shared with the CLI tests
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
 from cli_support import free_port, run_main  # noqa: E402
+# the published H100 peaks, bounds and the int32 issue rate, shared with
+# the port's measurement tools
+from opv_tpu_torch.tools.timing import (PEAK_OPS_PER_S,  # noqa: E402
+                                        bound, bound_of, int32_ops_per_s,
+                                        nvidia_smi, viterbi_work)
 
 CHANNELS = 64
 FRAMES = 20
@@ -286,21 +309,6 @@ SOFT_RTOL = 1e-5
 #: sums of 80 products in another order
 SOFT_F64_RTOL = 1e-12
 KERNEL_REPS = 20
-#: published H100 SXM peaks (NVIDIA's H100 datasheet): HBM bytes/s, and
-#: operations/s for float32 outside the tensor cores and for int8
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12,
-                  # float64 outside the tensor cores (the same datasheet)
-                  "f64": 34e12,
-                  # float64 on the tensor cores (a DGEMM; the same datasheet)
-                  "f64_tensor": 67e12}
-#: int32 operations of the Viterbi per trellis state per step: two adds
-#: (each predecessor's path metric plus its branch metric), a compare of
-#: the two candidates and a select of the survivor
-VITERBI_OPS_PER_STATE_STEP = 4
-#: ... and per step, shared by all 64 states: the four distinct branch
-#: metrics of a rate-1/2 code (one per pair of expected output bits)
-VITERBI_OPS_PER_STEP = 4
 STEADY_REPS = 7
 THROUGHPUT_BLOCKS = 20
 SPF = 86_720                  # samples per frame
@@ -505,6 +513,17 @@ WF_BF = 4
 PROBE_EBN0 = 7.0
 PROBE_BF = 4
 PB_BIAS_TOL = 1e-4
+# phase 16 (tools): where the measurement tools' records go (chip_smoke.py
+# --records DIR), and how far a kernel stage's median in stage_bench may
+# lie from the same kernel's time in phases 3-4 of the run (a factor)
+TOOLS_RECORDS = "build/chip_smoke/tools"
+TOOLS_CONSISTENCY = 1.5
+# ... and the arguments of its wideband_bench, modem_bench and
+# scaling_bench runs
+TOOLS_WIDEBAND = (("--k", "4", "64"), ("--k", "64", "--pipeline"),
+                  ("--k", "64", "--bursty"))
+TOOLS_MODEM = ("--both", "--frames", "20", "--burst", "20")
+TOOLS_SCALING = ("--devices", "1", "2", "4", "8", "--shard-cost")
 COHERENT_LINES = ("Estimated carrier offset: 1430.0 Hz",
                   "Demodulated 6604 symbols, final AFC offset: 2000.0 Hz",
                   "Summary: 0 frames (0 perfect, 0 errors)",
@@ -561,21 +580,6 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def nvidia_smi(query: str) -> str:
-    smi = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return smi.stdout.strip().splitlines()[0].strip()
-
-
-def bound(nbytes: float, nops: float, ops_per_s: float):
-    """(bound ms, what bounds it): the larger of bytes over the HBM rate
-    and operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -591,21 +595,9 @@ def phase_device():
     return card, int32_ops_per_s()
 
 
-def int32_ops_per_s() -> float:
-    """The card's int32 issue rate: 64 lanes per SM at the max SM clock."""
-    import torch
-    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * 64 * sm_mhz * 1e6
-
-
 def viterbi_bound(b: int, int_ops_per_s: float):
-    """(bound ms, what bounds it) of B frames: each soft value read once
-    (int32), each bit and metric written once, against the int32 issue of
-    every state's add-compare-select at every trellis step."""
-    eb, fb = 2144, 1072
-    nbytes = b * (eb * 4 + fb + 4)
-    nops = b * fb * (64 * VITERBI_OPS_PER_STATE_STEP + VITERBI_OPS_PER_STEP)
+    """(bound ms, what bounds it) of B frames (timing.viterbi_work)."""
+    nbytes, nops = viterbi_work(b)
     return bound(nbytes, nops, int_ops_per_s)
 
 
@@ -706,29 +698,21 @@ def phase_viterbi(dev, int_ops_per_s: float):
 def transmission(n_frames: int, dev, start: int = 0):
     """A BERT transmission through the port's TX on `dev`: ((N,) complex64
     with the modulator's trailing zero flush, (n_frames, 134) uint8
-    frames numbered start, start + 1, ...)."""
+    frames numbered start, start + 1, ... on `dev`)."""
     import torch
-    from opv_tpu_torch.core.framing import build_bert_frame, encode_frame
-    from opv_tpu_torch.tx.modulator import (iq_int16_to_complex,
-                                            modulate_frames, tx_flush_zeros)
-    frames = torch.from_numpy(build_bert_frame(
-        "W5NYV", frame_num=start + np.arange(n_frames))).to(dev)
-    iq, _ = modulate_frames(encode_frame(frames))
-    return (iq_int16_to_complex(torch.cat([iq, tx_flush_zeros(device=dev)])),
-            frames)
+    from opv_tpu_torch.tools.capture import fast_stream
+    s, frames = fast_stream(n_frames, dev, start)
+    return s, torch.from_numpy(frames).to(dev)
 
 
 def synthesize(dev):
     """(C, N) complex64 on the card: the 20-frame BERT stream through the
-    port's TX, channel c delayed by (c % 40) + 487 c samples."""
+    port's TX, channel c delayed by (c % 40) + 487 c samples
+    (capture.smoke_signal); the frames on the card; the delays."""
     import torch
-    s, frames = transmission(FRAMES, dev)
-    delays = [(c % 40) + 487 * c for c in range(CHANNELS)]
-    n = -(-(len(s) + max(delays)) // 40) * 40
-    x = torch.zeros((CHANNELS, n), dtype=torch.complex64, device=dev)
-    for c, d in enumerate(delays):
-        x[c, d:d + len(s)] = s
-    return x, frames, delays
+    from opv_tpu_torch.tools.capture import smoke_signal
+    x, frames, delays = smoke_signal(CHANNELS, FRAMES, dev)
+    return x, torch.from_numpy(frames).to(dev), delays
 
 
 def hold_soft(ops, nsym: int, what: str, rtol: float = SOFT_RTOL):
@@ -2020,16 +2004,11 @@ def same_wideband(got, want, frames, what: str) -> dict:
 
 
 def channelize_bound(n_in: int, k: int, m: int, taps: int = 12):
-    """(bound ms, what bounds it) of one channelize call: the wideband
-    input read once and the (K, M) complex64 output written once, against
-    the float32 polyphase legs (a multiply and an add per tap and real
-    component) and the float64 DFT product (2 x M x 2K x 2K)."""
-    nbytes = 8 * n_in + 8 * k * m
-    t_ops = (m * k * 2 * taps * 2 / PEAK_OPS_PER_S["f32"]
-             + 2 * m * (2 * k) ** 2 / PEAK_OPS_PER_S["f64_tensor"])
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), nbytes
+    """(bound ms, what bounds it, bytes) of one channelize call
+    (wideband_bench.channelize_work)."""
+    from opv_tpu_torch.tools.wideband_bench import channelize_work
+    nbytes, work = channelize_work(n_in, k, m, taps)
+    return (*bound_of(nbytes, work), nbytes)
 
 
 def periodic_wideband(dev):
@@ -4674,6 +4653,134 @@ def phase_ber(dev, card):
                 seconds=round(secs, 1))
 
 
+def run_tool(main, argv, commit: str | None) -> dict:
+    """A measurement tool's main(argv) in this process: its record (the
+    JSON object it prints).  A nonzero exit (a failed decode check) fails
+    the phase."""
+    argv = [*argv, *(["--commit", commit] if commit else [])]
+    t0 = time.perf_counter()
+    rc, out, err = run_main(main, argv)
+    if rc != 0:
+        raise AssertionError(f"[tools] {main.__module__} {argv}: exit {rc}: "
+                             f"{err[-3000:]}")
+    log(f"[tools] {main.__module__.rsplit('.', 1)[1]} {' '.join(argv)}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return json.loads(out)
+
+
+def median_range(d: dict, suffix: str = "") -> str:
+    """A figure's median [min, max]: the keys median, min and max, each
+    with `suffix` ("_ms" for a timing)."""
+    return (f"{d['median' + suffix]:.4f} [{d['min' + suffix]:.4f}, "
+            f"{d['max' + suffix]:.4f}]")
+
+
+def phase_tools(dev, card, vit, soft, records: str = TOOLS_RECORDS,
+                commit: str | None = None):
+    """Phase 16: the measurement tools (opv_tpu_torch/tools/) in this
+    process at production width, their records written to `records`:
+    stage_bench at smoke-64x20 on float32, int8 and float64 rows and both
+    radices (its K3 float32 / int8 and K1 medians within TOOLS_CONSISTENCY
+    of phases 3-4's); tx_bench at 64 x 20; wideband_bench at K = 4 and 64
+    synchronous, K = 64 pipelined and K = 64 bursty; modem_bench --both;
+    scaling_bench over 1, 2, 4 and 8 time shards and --shard-cost.  Each
+    tool's decode checks must pass."""
+    from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.tools import (modem_bench, scaling_bench, stage_bench,
+                                     tx_bench, wideband_bench)
+    t_phase = time.perf_counter()
+    registry.set_viterbi_radix(4)
+    registry.reset_launch_counts()
+    recs = {}
+    recs["STAGE_TORCH.json"] = stage = run_tool(
+        stage_bench.main, ["--channels", str(CHANNELS), "--frames",
+                           str(FRAMES)], commit)
+    for name, st in stage["stages"].items():
+        t = st["timing"]
+        line = (f"[tools] stage {name}: {median_range(t, '_ms')} ms "
+                f"({t['clock']}{', queued' if t.get('queued') else ''})")
+        if isinstance(st["roofline"]["share"], float):
+            line += (f", bound {st['roofline']['bound_ms']:.4f} ms "
+                     f"({st['roofline']['bound_by']}), roofline "
+                     f"{100 * st['roofline']['share']:.1f}%")
+        if "msamples_s" in st:
+            line += f", {median_range(st['msamples_s'])} Msamples/s"
+        lib = st.get("library", {}).get("timing")
+        if lib:
+            line += f"; torch.bmm {lib['median_ms']:.4f} ms"
+        log(line + f" ({card})")
+    ratios = {}
+    for key, ref in (("soft_kernel[float32]", soft["f32"]["ms"]),
+                     ("soft_kernel[int8]", soft["int8"]["ms"]),
+                     ("viterbi[r4]", vit[4]["ms"])):
+        got = stage["stages"][key]["timing"]["median_ms"]
+        ratios[key] = got / ref
+        if not 1 / TOOLS_CONSISTENCY <= got / ref <= TOOLS_CONSISTENCY:
+            raise AssertionError(f"[tools] stage_bench {key} {got:.4f} ms "
+                                 f"against {ref:.4f} ms in phases 3-4: more "
+                                 f"than {TOOLS_CONSISTENCY}x apart")
+    log(f"[tools] stage_bench's kernel medians over phases 3-4's: "
+        f"{ {k: round(v, 3) for k, v in ratios.items()} }")
+    recs["TX_TORCH.json"] = tx = run_tool(
+        tx_bench.main, ["--channels", str(CHANNELS), "--frames",
+                        str(FRAMES)], commit)
+    for name, st in tx["stages"].items():
+        extra = (f", {median_range(st['msamples_s'])} Msamples/s"
+                 if "msamples_s" in st else
+                 f", {median_range(st['ms_per_frame'])} ms a frame")
+        log(f"[tools] tx {name}: {median_range(st['timing'], '_ms')} ms "
+            f"({st['timing']['clock']}){extra} ({card})")
+    wide = [run_tool(wideband_bench.main, argv, commit)
+            for argv in TOOLS_WIDEBAND]
+    recs["WIDEBAND_TORCH.json"] = dict(card=card, commit=commit, runs=wide)
+    for rec in wide:
+        for row in rec["rows"]:
+            log(f"[tools] wideband K={row['k']} {row['scenario']}"
+                f"{' pipelined' if row['pipeline'] else ''}: "
+                f"{median_range(row['wideband_msps'])} Msamples/s, "
+                f"{median_range(row['x_realtime'])}x real time; channelize "
+                f"{row['channelize']['timing']['median_ms']:.4f} ms a "
+                f"quantum; transmitted frames a window by active channel "
+                f"{row['transmitted_per_active']} of "
+                f"{row['expected_per_active_per_window']}"
+                + (f"; blocks {row['blocks_by_program']}, re-acquires "
+                   f"{row['reacquire_dispatches']}"
+                   if row["scenario"] == "bursty" else "") + f" ({card})")
+    recs["MODEM_TORCH.json"] = modem = run_tool(modem_bench.main,
+                                                TOOLS_MODEM, commit)
+    for run in modem["runs"]:
+        cad = run["cadence_ms"]
+        log(f"[tools] modem {run['engine']}: ready {run['server_ready_s']:.2f}"
+            f" s, cold start {run['cold_start_s']:.3f} s, cadence p50 "
+            f"{cad['p50']:.1f} / p95 {cad['p95']:.1f} / p99 {cad['p99']:.1f}"
+            f" ms, burst {median_range(run['burst_fps'])} frames/s "
+            f"(host clock; {card})")
+    recs["SCALING_TORCH.json"] = scaling = run_tool(scaling_bench.main,
+                                                    TOOLS_SCALING, commit)
+    for row in scaling["weak_scaling"]:
+        log(f"[tools] scaling n={row['devices']}: "
+            f"{median_range(row['msps'])} Msamples/s, efficiency "
+            f"{row['efficiency']['median']:.3f} ({scaling['measures']})")
+    fit = scaling["shard_cost"]["fit"]
+    log(f"[tools] shard cost: c_fix {fit['c_fix_ms']:.3f} ms, c_lin "
+        f"{fit['c_lin_ns_per_sample']:.3f} ns a sample; projected "
+        f"{scaling['shard_cost']['projected_weak_scaling_efficiency']}")
+    launches = registry.launch_counts()
+    need = ("viterbi_r4", "viterbi_r2", "symbol_soft[float32]",
+            "symbol_soft[int8]", "symbol_soft[float64]", "phase_track")
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"[tools] a kernel of the tools' paths never "
+                             f"launched: {launches}")
+    out_dir = pathlib.Path(records)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, rec in recs.items():
+        (out_dir / name).write_text(json.dumps(rec) + "\n")
+    secs = time.perf_counter() - t_phase
+    log(f"[tools] launches {launches}; records in {out_dir}; phase "
+        f"{secs:.1f} s")
+    return dict(launches=launches, consistency=ratios, seconds=round(secs, 1))
+
+
 def phase_profile(state, card, out_dir="build/chip_smoke"):
     """Device time by op over three steady blocks per buffer type."""
     import torch
@@ -4712,8 +4819,16 @@ def phase_profile(state, card, out_dir="build/chip_smoke"):
                                      / f"steady_{name}_trace.json"))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--records", default=TOOLS_RECORDS,
+                    help="where phase 16 writes the tools' records")
+    ap.add_argument("--commit", default=None,
+                    help="the commit the tools' records name (the card's "
+                         "copy of the checkout has no git)")
+    args = ap.parse_args(argv)
     card, int_ops_per_s = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -4733,10 +4848,11 @@ def main() -> int:
     precision = phase_precision(dev, card, int_ops_per_s, tracking)
     mesh = phase_mesh(dev, card)
     ber = phase_ber(dev, card)
+    tools = phase_tools(dev, card, vit, soft, args.records, args.commit)
     phases = (("stream", stream), ("modes", modes), ("cli", cli),
               ("wideband", wideband), ("tracking", tracking),
               ("dense", dense), ("precision", precision), ("mesh", mesh),
-              ("ber", ber))
+              ("ber", ber), ("tools", tools))
     kernels = [
         dict(name="viterbi_r4", route="cuda", source="opv_tpu_torch/csrc/viterbi.cu",
              replaces="opv_tpu/ops/pallas/viterbi.py:256",
@@ -4755,6 +4871,7 @@ def main() -> int:
         k["launches_precision"] = precision["launches"][k["name"]]
         k["launches_mesh"] = mesh["launches"][k["name"]]
         k["launches_ber"] = ber["launches"][k["name"]]
+        k["launches_tools"] = tools["launches"][k["name"]]
     # one kernel template, counted per row type where it launches
     for name, rows in (("f32", "float32"), ("int8", "int8")):
         key = f"symbol_soft[{rows}]"
@@ -4769,7 +4886,8 @@ def main() -> int:
             launches_dense=dense["launches"][key],
             launches_precision=precision["launches"][key],
             launches_mesh=mesh["launches"][key],
-            launches_ber=ber["launches"][key], **soft[name]))
+            launches_ber=ber["launches"][key],
+            launches_tools=tools["launches"][key], **soft[name]))
     kernels.append(dict(
         name="phase_track", route="cuda",
         source="opv_tpu_torch/csrc/phase_track.cu",
@@ -4784,6 +4902,7 @@ def main() -> int:
         launches_precision=precision["launches"]["phase_track"],
         launches_mesh=mesh["launches"]["phase_track"],
         launches_ber=ber["launches"]["phase_track"],
+        launches_tools=tools["launches"]["phase_track"],
         **cli["phase_track"]))
     # the tracking receiver's kernels: ms and bound at C = 64 (one chunk of
     # the golden mix); launches: the tracking phase's (b)-(d), GivenSync's
@@ -4834,7 +4953,8 @@ def main() -> int:
                       "stream": stream, "modes": modes, "cli": cli,
                       "wideband": wideband, "tracking": tracking,
                       "dense": dense, "precision": precision,
-                      "mesh": mesh, "ber": ber, "peak_bytes": peak}),
+                      "mesh": mesh, "ber": ber, "tools": tools,
+                      "peak_bytes": peak}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -308,17 +307,6 @@ def check(out: dict) -> list:
     return bad
 
 
-def commit() -> str | None:
-    """The checkout's commit, where it is a git checkout."""
-    root = pathlib.Path(__file__).resolve().parents[2]
-    try:
-        r = subprocess.run(["git", "-C", str(root), "rev-parse", "HEAD"],
-                           capture_output=True, text=True, timeout=30)
-    except OSError:
-        return None
-    return r.stdout.strip() if r.returncode == 0 else None
-
-
 def headtohead(ebn0, frames: int, seeds, lead: int, dev,
                against: dict | None = None, progress=log) -> dict:
     """The tool's JSON object: one aggregated row per point, the file's
@@ -375,6 +363,7 @@ def main(argv=None) -> int:
 
     from opv_tpu_torch.cli._device import resolve_device
     from opv_tpu_torch.tools.capture import card_name
+    from opv_tpu_torch.tools.timing import commit
     dev = resolve_device(args.device)
     against = json.loads(pathlib.Path(args.against).read_text()) \
         if args.against else None

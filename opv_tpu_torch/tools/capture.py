@@ -110,3 +110,29 @@ def card_name() -> str | None:
     except (OSError, subprocess.SubprocessError):
         return None
     return smi.stdout.strip().splitlines()[0].strip()
+
+
+def fast_stream(n_frames: int, device, start: int = 0):
+    """The fast TX of BERT frames numbered start, start + 1, ... on
+    `device`, with the 100-symbol zero flush: ((N,) complex64 on the
+    device, the (n_frames, 134) uint8 frames on the host)."""
+    from opv_tpu_torch.tx.modulator import iq_int16_to_complex
+    frames = build_bert_frame(CALLSIGN, frame_num=start + np.arange(n_frames))
+    dev = torch.device(device)
+    iq, _ = modulate_frames(encode_frame(torch.from_numpy(frames).to(dev)))
+    return (iq_int16_to_complex(torch.cat([iq, tx_flush_zeros(device=dev)])),
+            frames)
+
+
+def smoke_signal(channels: int, n_frames: int, device):
+    """bench.py's geometry (bench.py:76-77), synthesized on `device`: one
+    fast-TX stream of n_frames on every channel, channel c delayed by
+    (c % 40) + 487 c samples, the length a multiple of 40.  Returns ((C, N)
+    complex64, the frames, the delays)."""
+    s, frames = fast_stream(n_frames, device)
+    delays = [(c % 40) + 487 * c for c in range(channels)]
+    n = -(-(len(s) + max(delays)) // 40) * 40
+    x = torch.zeros((channels, n), dtype=torch.complex64, device=s.device)
+    for c, d in enumerate(delays):
+        x[c, d:d + len(s)] = s
+    return x, frames, delays

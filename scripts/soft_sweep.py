@@ -32,10 +32,11 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from chip_smoke import HBM_BYTES_PER_S, KERNEL_REPS, SOFT_RTOL, cuda_ms, nvidia_smi  # noqa: E402
+from chip_smoke import KERNEL_REPS, SOFT_RTOL, cuda_ms, nvidia_smi  # noqa: E402
 from opv_tpu_torch.ops import build  # noqa: E402
 from opv_tpu_torch.ops import symbol_soft as ss  # noqa: E402
 from opv_tpu_torch.rx.locked import soft_stage_operands  # noqa: E402
+from opv_tpu_torch.tools.timing import HBM_BYTES_PER_S  # noqa: E402
 
 CHANNELS, ROWS = 64, 44_228
 #: variants: (threads, rows per thread, stages) for float32 rows, then int8

@@ -70,6 +70,12 @@ MODULES = [
     "opv_tpu_torch.tools.ber_curve",
     "opv_tpu_torch.tools.timing_pin_probe",
     "opv_tpu_torch.tools.gen_timing_template",
+    "opv_tpu_torch.tools.timing",
+    "opv_tpu_torch.tools.stage_bench",
+    "opv_tpu_torch.tools.tx_bench",
+    "opv_tpu_torch.tools.wideband_bench",
+    "opv_tpu_torch.tools.modem_bench",
+    "opv_tpu_torch.tools.scaling_bench",
 ]
 
 
@@ -247,19 +253,31 @@ def test_dense_and_coherent_receivers_without_jax():
 
 
 def test_tools_without_jax():
-    """The BER tools run on CPU tensors with jax, opv_tpu and the JAX
-    repo's tools/ absent."""
+    """The BER and bench tools run on CPU tensors with jax, opv_tpu and
+    the JAX repo's tools/ absent."""
     r = _run("""
         import sys
         for m in ("jax", "opv_tpu", "tools"):
             sys.modules[m] = None
+        import torch
         from opv_tpu_torch.tools import ber_curve, ber_headtohead, capture
+        from opv_tpu_torch.tools import (modem_bench, scaling_bench,
+                                         stage_bench, tx_bench,
+                                         wideband_bench)
         rows = ber_curve.sweep([10.0], 2, 42, "locked", "cpu")
         assert rows[0]["frames"] == 2 and rows[0]["ber"] < 0.01
         truth, s, p = capture.exact_signal(2, "cpu")
         sw = capture.wire_to_complex(capture.headtohead_wire(s, p, 42, 10.0, 100))
         row = ber_headtohead.run_locked(sw, truth, "cpu")
         assert row["decoded"] == 2
+        cpu = torch.device("cpu")
+        rec = stage_bench.bench(1, 2, ["float32"], [4], 1, cpu)
+        assert rec["checks"]["passed"] and rec["decoded_per_block"] == 2
+        f, bits, _ = wideband_bench.periodic_bits(2, 1, cpu)
+        assert bits.shape[0] == (f + 1) * 2168
+        assert modem_bench.seq_of(modem_bench.build_frame(77)) == 77
+        assert scaling_bench.shard_size(1.0) == 87680
+        assert callable(tx_bench.bench)
         print("ok")
     """)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
