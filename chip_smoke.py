@@ -66,8 +66,16 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               process (exact, the default) byte-equal to the reference
               binary's captures tests/golden/bert3.iq and raw3.iq, its
               --fast -R output equal to the fast TX on the CPU; the
-              phase_track kernel bit-identical to its twin over bert3, its
-              ms per frame against the twin's and the exact TX per frame;
+              phase_track kernel (a walk over binade segments, then a fill)
+              bit-identical to its twin over bert3, its segment tables
+              equal to the CPU model's, and bit-identical again from the
+              adversarial starts (PHASE_STARTS) at the config's increments
+              (3 frames) and at +-0.05 and +-(2^-5 + 2^-57) (20,000
+              samples); its ms per frame against the twin's, segments a
+              frame, the walk's cycles a segment and ms (a clock64 copy
+              built from scripts/phase_sweep.py), the floor of its
+              dependent chain (segments x the card's measured latencies
+              of the chain a segment), and the exact TX per frame;
               opv_demod -s --fast -r -q --channels 64 in this process on the
               stream phase's feed as int16 wire bytes (float32 and int8
               rows, --metrics): on float32 rows every transmitted frame
@@ -271,7 +279,9 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      phase's in-process runs; the float32 instantiations of
      track_symbols and sync_scan
      and the float64 one of symbol_soft their own rows, launches from
-     phase 13 (b)-(e), GivenSync's from its float32 route), the card line,
+     phase 13 (b)-(e), GivenSync's from its float32 route; phase_track's
+     entry adds segments_per_frame, cycles_per_segment, walk_ms,
+     chain_cycles, floor_ms and floor_share from phase 9), the card line,
      then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -348,6 +358,18 @@ CLI_ECHO_WARM = 10
 CLI_ECHO_FRAMES = 40
 CLI_PACING_S = 0.040
 CLI_TRACK_REPS = 5
+#: phase_track's adversarial starts (both wraps and their neighbours, the
+#: binade edge 0.5 and its predecessor, tiny and subnormal phases, phases
+#: beyond pi) and increments besides the config's: +-0.05 (a tie binade at
+#: [1/8, 1/4)) and +-(2^-5 + 2^-57) (one at [1/16, 1/8)), over
+#: PHASE_OTHER_N samples; the config's run 3 frames
+PHASE_STARTS = {"0": 0.0, "-0": -0.0, "+pi": np.pi, "-pi": -np.pi,
+                "pi-": float(np.nextafter(np.pi, 0)),
+                "-pi+": float(np.nextafter(-np.pi, 0)), "+0.5": 0.5,
+                "-0.5": -0.5, "0.5-": float(np.nextafter(0.5, 0)),
+                "1e-300": 1e-300, "5e-324": 5e-324, "7": 7.0, "-100": -100.0}
+PHASE_INCS = {"0.05": 0.05, "tie": 2.0 ** -5 + 2.0 ** -57}
+PHASE_OTHER_N = 20_000
 CLI_START_S = 120
 CLI_BIG_READ = 16
 REAL_TIME_MSPS = 2.168        # one channel's sample rate, Msamples/s
@@ -1483,6 +1505,49 @@ def tx_cpu(frames_u8: np.ndarray, exact: bool = False) -> bytes:
     return iq.numpy().astype("<i2").tobytes()
 
 
+def phase_sweep_module():
+    """scripts/phase_sweep.py as a module (its span and latency copies
+    give the phase_track walk's cycles a segment and its chain's floor)."""
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / "phase_sweep.py"
+    spec = importlib.util.spec_from_file_location("phase_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_track_cases(dev) -> int:
+    """phase_track from every PHASE_STARTS phase, at the config's
+    increments over 3 frames and at each PHASE_INCS increment and its
+    negative (two tones) over PHASE_OTHER_N samples: phases and final
+    phases bit for bit against the twin, segment tables (one chunk)
+    against the model's.  Returns the calls made."""
+    import torch
+    from opv_tpu_torch.ops import phase_track as pt
+    from opv_tpu_torch.tx import modulator
+    runs = [((modulator._INC1, modulator._INC2), 3 * SPF)]
+    runs += [((inc, -inc), PHASE_OTHER_N) for inc in PHASE_INCS.values()]
+    calls = 0
+    for incs, n in runs:
+        for name, start in PHASE_STARTS.items():
+            ph0 = torch.full((2,), start, dtype=torch.float64)
+            got, got_f, segs, counts = pt.launch(pt.build.library(),
+                                                 ph0.to(dev), incs, n)
+            tables = pt.segment_tables(segs, counts)
+            ref, ref_f, model = pt.phase_segments_reference(ph0, incs, n)
+            want, want_f = pt.phase_track_reference(ph0, incs, n)
+            bits = [t.cpu().view(torch.int64) for t in (got, got_f)]
+            if not (torch.equal(bits[0], want.view(torch.int64))
+                    and torch.equal(bits[1], want_f.view(torch.int64))
+                    and torch.equal(ref, want) and tables == model):
+                bad = torch.nonzero((got.cpu() != want).any(0))[:8, 0]
+                raise AssertionError(
+                    f"phase_track from {name} at {incs}, n {n}: card != twin "
+                    f"at samples {bad.tolist()} or tables differ")
+            calls += 1
+    return calls
+
+
 def cli_mod(dev, card, fp64_ops_per_s: float):
     """opv_mod in this process on the card, and the phase_track kernel
     against its twin."""
@@ -1529,6 +1594,12 @@ def cli_mod(dev, card, fp64_ops_per_s: float):
         bad = torch.nonzero((got.cpu() != ref).any(0))[:8, 0].tolist()
         raise AssertionError(f"phase_track kernel != twin at samples {bad}")
     ms = cuda_ms(lambda: pt.phase_track_cuda(ph0, incs, n), CLI_TRACK_REPS)
+    tables = pt.segment_tables(*pt.launch(pt.build.library(), ph0, incs,
+                                          n)[2:])
+    if tables != pt.phase_segments_reference(ph0.cpu(), incs, n)[2]:
+        raise AssertionError("phase_track's segment tables != the model's")
+    cases = phase_track_cases(dev)
+    walk = phase_sweep_module().segment_floor(dev)
     wraps = int((ref.diff(dim=1).abs() > np.pi).sum())
     nbytes = 2 * 8 + 2 * n * 8 + 2 * 8
     # per tone and sample: the add and the two wrap compares, plus the
@@ -1550,17 +1621,29 @@ def cli_mod(dev, card, fp64_ops_per_s: float):
     log(f"[cli] opv_mod exact on the card: bert3 and raw3 byte-equal to the "
         f"reference captures; --fast -R equal to the CPU's fast TX; "
         f"phase_track launches {launches['phase_track']}")
+    segments = [len(t) / 3 for t in tables]
     log(f"[cli] phase_track: kernel bit-identical to the twin over {n} "
-        f"samples x 2 tones ({wraps} wraps); kernel {ms:.3f} ms = "
-        f"{ms / 3:.3f} ms per frame, twin {twin_ms:.1f} ms = "
-        f"{twin_ms / 3:.1f} ms per frame (host); bound {bound_ms:.5f} ms "
-        f"({bound_by}); exact TX per 40 ms frame: card {tx_ms['card']:.2f} "
-        f"ms, cpu {tx_ms['cpu']:.1f} ms (host clock; {card})")
+        f"samples x 2 tones ({wraps} wraps) and over {cases} adversarial "
+        f"calls, segment tables equal to the model's ({segments} segments "
+        f"a frame); kernel {ms:.3f} ms = {ms / 3:.3f} ms per frame, twin "
+        f"{twin_ms:.1f} ms = {twin_ms / 3:.1f} ms per frame (host); bound "
+        f"{bound_ms:.5f} ms ({bound_by}); walk {walk['walk_ms']:.4f} ms "
+        f"({walk['cycles_per_segment']:.1f} cycles a segment at "
+        f"{walk['sm_mhz']:.0f} MHz); floor {walk['floor_ms']:.4f} ms (the "
+        f"chain's {walk['chain_cycles']:.1f} cycles a segment at the measured "
+        f"latencies), {100 * walk['floor_ms'] / ms:.1f}% of the kernel; "
+        f"exact TX per 40 ms frame: card "
+        f"{tx_ms['card']:.2f} ms, cpu {tx_ms['cpu']:.1f} ms (host clock; "
+        f"{card})")
     track_err = max((got.cpu() - ref).abs().max().item(),
                     (got_f.cpu() - ref_f).abs().max().item())
     kernel = dict(ms=ms, plain_ms=twin_ms, max_abs_err=track_err,
                   bound_ms=bound_ms,
-                  bound_by=bound_by, roofline=bound_ms / ms, library_ms=None)
+                  bound_by=bound_by, roofline=bound_ms / ms, library_ms=None,
+                  segments_per_frame=segments,
+                  cycles_per_segment=walk["cycles_per_segment"],
+                  walk_ms=walk["walk_ms"], chain_cycles=walk["chain_cycles"],
+                  floor_ms=walk["floor_ms"], floor_share=walk["floor_ms"] / ms)
     return launches, kernel, dict(track_ms_per_frame=ms / 3,
                                   twin_ms_per_frame=twin_ms / 3,
                                   exact_tx_ms_per_frame=tx_ms)

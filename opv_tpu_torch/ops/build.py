@@ -46,7 +46,8 @@ SIGNATURES = {
     "opv_symbol_soft": ([_P, ctypes.c_longlong, _I, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "opv_symbol_soft_config": ([_I, ctypes.POINTER(_I)], _I),
     "opv_phase_track": ([_P, ctypes.c_double, ctypes.c_double, _I,
-                         ctypes.c_longlong, _P, _P, _P], _I),
+                         ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_longlong,
+                         _P], _I),
     "opv_track_symbols": ([_P, ctypes.c_longlong, _P, _P, _I, _I,
                            ctypes.POINTER(ctypes.c_double), _P, _P, _P, _P,
                            _P], _I),

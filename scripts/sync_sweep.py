@@ -1,7 +1,6 @@
 """Time the sync state machine kernel (opv_tpu_torch/csrc/sync_scan.cu) on
-one GPU against an older source with the same C entry point, count its
-clock64() cycles a tile, and measure the floor of the exact TX's serial
-phase recurrence (csrc/phase_track.cu).
+one GPU against an older source with the same C entry point, and count
+its clock64() cycles a tile.
 
     git show 2dbd49d:opv_tpu_torch/csrc/sync_scan.cu > build/sync_old.cu
     python scripts/sync_sweep.py --baseline build/sync_old.cu \
@@ -20,21 +19,15 @@ source), under build/sync_sweep/:
                a value of the stage it closes) and the walk of the tiles
   baseline probe
                the older source with stamps around its symbol loop (span)
-  latency      one thread timing dependent chains with clock64(): a
-               float64 add, the phase recurrence's compare-and-select
-               (p > y ? p - c : p) and its whole step (the add, then both
-               wraps, as csrc/phase_track.cu runs it), and the SM clock as
-               clock64() against %globaltimer
 Each library is held bit for bit against the plain twins on one chunk of
 the golden mix (chip_smoke.track_inputs, T1's soft from a zero history)
 at C = 1 and 64 and on the stress inputs, then timed with CUDA events over
 chip_smoke.SYNC_REPS launches queued behind a sleep (chip_smoke.device_ms)
 in turns: build, baseline, build, baseline
 on given raw/norm (GivenSync); build's SoftSync against baseline after
-torch's sync_correlate (the route it replaces).  phase_track is timed on
-chip_smoke's 260,160 samples x 2 tones beside its floor: the step's
-measured chain at the measured SM clock.  The SASS of build and baseline
-is written beside --out.  Without a CUDA device it exits non-zero.
+torch's sync_correlate (the route it replaces).  The SASS of build and
+baseline is written beside --out.  Without a CUDA device it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -54,12 +47,11 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
-from chip_smoke import (SPF, SYNC_REPS, TRACK_CHANNELS, TRACK_REPS,  # noqa: E402
-                        cuda_ms, device_ms, hold_sync, hold_sync_soft,
+from chip_smoke import (SPF, SYNC_REPS, TRACK_CHANNELS,  # noqa: E402
+                        device_ms, hold_sync, hold_sync_soft,
                         nvidia_smi, soft_stress, track_inputs)
 from opv_tpu_torch.config import CONFIG  # noqa: E402
 from opv_tpu_torch.ops import build  # noqa: E402
-from opv_tpu_torch.ops import phase_track as pt  # noqa: E402
 from opv_tpu_torch.ops import sync_scan as sc  # noqa: E402
 from opv_tpu_torch.ops import track_symbols as ts  # noqa: E402
 from opv_tpu_torch.rx.demod import max_symbols  # noqa: E402
@@ -69,8 +61,6 @@ from track_sweep import insert_after, ptxas_lines, write_sass  # noqa: E402
 #: the probe's record per channel: prepare, walk, span, tiles
 _RECORD = 4
 _MAX_CHANNELS = 256
-#: samples of phase_track's timed call (chip_smoke phase 9: 3 frames)
-_TX_SAMPLES = 3 * SPF
 
 _PROBE_HEAD = """
 __device__ unsigned long long opv_probe_cycles[%d];
@@ -119,94 +109,6 @@ _OLD_MARKS = (
      "    rec[3] = (steps + 31) / 32; }"),
 )
 
-_LATENCY = r"""
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr double kPi = 3.14159265358979323846;
-constexpr double kTwoPi = 2.0 * kPi;
-constexpr int kOps = 3;  // dadd, cmpsel, wrap step
-__device__ long long lat_cycles[kOps + 1];
-__device__ unsigned long long lat_ns;
-__device__ double lat_sink[kOps + 1];
-
-__device__ __forceinline__ long long stamp(double dep) {
-  long long t;
-  asm volatile("{ .reg .pred p;\n"
-               "setp.eq.f64 p, %1, 0d7FEFFFFFFFFFFFFF;\n"
-               "@p trap;\n"
-               "mov.u64 %0, %%clock64; }"
-               : "=l"(t) : "d"(dep) : "memory");
-  return t;
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");
-  return t;
-}
-
-template <int Op>
-__device__ __forceinline__ double step(double x, double y) {
-  if (Op == 0) return x + y;
-  if (Op == 1) {  // one of the wrap's compare-and-selects
-    if (x > y) x -= kTwoPi;
-    return x;
-  }
-  double p = x + y;  // phase_track's step: the add, then both wraps
-  if (p > kPi) p -= kTwoPi;
-  if (p < -kPi) p += kTwoPi;
-  return p;
-}
-
-template <int Op>
-__device__ void chain(double x, double y, int n) {
-  const long long t0 = stamp(x);
-#pragma unroll 16
-  for (int i = 0; i < n; ++i) x = step<Op>(x, y);
-  const long long t1 = stamp(x);
-  lat_cycles[Op] = t1 - t0;
-  lat_sink[Op] = x;
-}
-
-__global__ void latency_kernel(double x0, double inc, double edge, int n,
-                               int clock_n) {
-  chain<0>(x0, inc, n);
-  chain<1>(x0, edge, n);
-  chain<2>(x0, inc, n);
-  double x = x0;
-  const unsigned long long g0 = now_ns();
-  const long long t0 = stamp(x);
-  for (int i = 0; i < clock_n; ++i) x = x + inc;
-  const long long t1 = stamp(x);
-  const unsigned long long g1 = now_ns();
-  lat_cycles[kOps] = t1 - t0;
-  lat_ns = g1 - g0;
-  lat_sink[kOps] = x;
-}
-
-}  // namespace
-
-extern "C" int opv_tx_latency(double inc, double edge, int n, int clock_n,
-                              long long* cycles, unsigned long long* ns) {
-  latency_kernel<<<1, 1>>>(0.5, inc, edge, n, clock_n);
-  cudaError_t e = cudaDeviceSynchronize();
-  if (e == cudaSuccess)
-    e = cudaMemcpyFromSymbol(cycles, lat_cycles, sizeof(long long) * (kOps + 1));
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(ns, lat_ns, sizeof(*ns));
-  return (int)e;
-}
-"""
-_LAT_OPS = ("dadd", "cmpsel", "wrap_step")
-_LAT_STEPS, _CLOCK_STEPS = 4096, 1 << 19
-#: the chain's increment: a tone's phase step of the exact TX (+13.55 kHz
-#: at 2.168 Msamples/s); the compare-and-select's edge (which side a step
-#: takes does not change its dependent latency)
-_TX_INC = 2 * np.pi * 13_550.0 / 2_168_000.0
-_CMPSEL_EDGE = -3.0
-
-
 def probe_source(src: str, marks) -> str:
     src = insert_after(src, "#include <stdint.h>\n", _PROBE_HEAD)
     for anchor, text in marks:
@@ -221,13 +123,11 @@ def sources(baseline: pathlib.Path, extra) -> dict[str, pathlib.Path]:
     old = baseline.read_text()
     work = build.BUILD_DIR.parent / "sync_sweep"
     texts = {"probe": probe_source(mine, _NEW_MARKS),
-             "baseline probe": probe_source(old, _OLD_MARKS),
-             "latency": _LATENCY}
+             "baseline probe": probe_source(old, _OLD_MARKS)}
     out = {"build": build.CSRC / "sync_scan.cu", "baseline": baseline,
            **dict(extra)}
     for i, (name, text) in enumerate(texts.items()):
-        path = work / str(i) / ("latency.cu" if name == "latency"
-                                else "sync_scan.cu")
+        path = work / str(i) / "sync_scan.cu"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(text)
         out[name] = path
@@ -244,11 +144,6 @@ def load_one(so: pathlib.Path) -> ctypes.CDLL:
     if hasattr(lib, "opv_sync_probe"):
         lib.opv_sync_probe.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.opv_sync_probe.restype = ctypes.c_int
-    if hasattr(lib, "opv_tx_latency"):
-        lib.opv_tx_latency.argtypes = [ctypes.c_double, ctypes.c_double,
-                                       ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_void_p, ctypes.c_void_p]
-        lib.opv_tx_latency.restype = ctypes.c_int
     return lib
 
 
@@ -270,19 +165,6 @@ def build_all(srcs: dict[str, pathlib.Path]):
             logs[name] = so.with_suffix(".log").read_text()
             paths[name] = so
     return libs, logs, paths
-
-
-def read_latency(lib) -> dict:
-    """{op: cycles a dependent step}, and "sm_mhz": the SM clock that
-    clock64() ran at against the global timer."""
-    cycles = (ctypes.c_longlong * (len(_LAT_OPS) + 1))()
-    ns = ctypes.c_ulonglong()
-    err = lib.opv_tx_latency(_TX_INC, _CMPSEL_EDGE, _LAT_STEPS, _CLOCK_STEPS,
-                             cycles, ctypes.byref(ns))
-    build.check(build.library(), err, "latency kernel")
-    out = {name: cycles[i] / _LAT_STEPS for i, name in enumerate(_LAT_OPS)}
-    out["sm_mhz"] = cycles[len(_LAT_OPS)] / ns.value * 1e3
-    return out
 
 
 def read_probe(lib, c: int) -> dict:
@@ -333,33 +215,11 @@ def main(argv=None) -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     for name in ("build", "baseline"):
         write_sass(paths[name], args.out.with_suffix(f".{name}.sass"))
-    lat = read_latency(libs.pop("latency"))
-    sm_mhz = lat["sm_mhz"]
-    report = {"card": card, "sm_mhz_max": max_mhz, "sm_mhz": sm_mhz,
-              "reps": SYNC_REPS, "latency_cycles": lat,
+    report = {"card": card, "sm_mhz_max": max_mhz, "reps": SYNC_REPS,
               "ptxas": {n: ptxas_lines(log) for n, log in logs.items()},
               "cases": {}}
     for name, lines in report["ptxas"].items():
         print(f"[sweep] {name}: ptxas {lines}", flush=True)
-
-    # phase_track: its chain's floor against its time
-    ph0 = torch.tensor([0.3, -1.1], dtype=torch.float64, device=dev)
-    incs = (_TX_INC, -_TX_INC)
-    tx_ms = cuda_ms(lambda: pt.phase_track_cuda(ph0, incs, _TX_SAMPLES),
-                    TRACK_REPS)
-    floor_ms = lat["wrap_step"] * _TX_SAMPLES / sm_mhz / 1e3
-    report["phase_track"] = {"samples": _TX_SAMPLES, "ms": tx_ms,
-                             "floor_ms": floor_ms,
-                             "floor_share": floor_ms / tx_ms,
-                             "cycles_per_sample": tx_ms * 1e3 * sm_mhz
-                             / _TX_SAMPLES}
-    print(f"[sweep] cycles a dependent step: dadd {lat['dadd']:.1f}, one "
-          f"compare-and-select {lat['cmpsel']:.1f}, phase_track's step "
-          f"{lat['wrap_step']:.1f}; SM clock {sm_mhz:.0f} MHz measured (max "
-          f"{max_mhz:.0f}); phase_track {tx_ms:.4f} ms for {_TX_SAMPLES} "
-          f"samples x 2 tones ({report['phase_track']['cycles_per_sample']:.1f} "
-          f"cycles a sample at the measured clock), floor {floor_ms:.4f} ms "
-          f"({100 * floor_ms / tx_ms:.1f}% of its time) ({card})", flush=True)
 
     new, old = libs["build"], libs["baseline"]
     given = {n: functools.partial(sc.launch, lib) for n, lib in libs.items()}

@@ -16,7 +16,8 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (COHERENT_RTOL, COHERENT_SYMBOLS,  # noqa: E402
-                        MODES_WEAK_GAIN, capture, dense_blocks, dense_host,
+                        MODES_WEAK_GAIN, PHASE_INCS, PHASE_OTHER_N,
+                        PHASE_STARTS, capture, dense_blocks, dense_host,
                         drive_wideband, golden, golden_frames,
                         hold_stream_kernels,
                         hold_sync, hold_sync_soft, hold_track,
@@ -363,23 +364,54 @@ def test_eager_serving_on_card(cuda_dev):
     assert (ce[first:] - cb[first:] == 1).all()
 
 
-def test_phase_track_kernel_matches_twin(cuda_dev):
+@pytest.mark.parametrize("start", PHASE_STARTS)
+@pytest.mark.parametrize("incs", ["config", *PHASE_INCS])
+def test_phase_track_kernel_matches_twin(cuda_dev, incs, start):
     """The exact modulator's phase recurrence on the card equals the twin
-    bit for bit over 3 frames from a non-reset state (start phases near
-    the wrap points, so the recurrence wraps on the first samples)."""
+    bit for bit (phases and final phases) from adversarial starts: over 3
+    frames at the config's increments, over 20,000 samples at +-0.05 and
+    +-(2^-5 + 2^-57); its segment tables equal the CPU model's.  One call
+    counts one launch."""
+    from opv_tpu_torch.ops import phase_track as pt
+    from opv_tpu_torch.tx.modulator import _INC1, _INC2
+    if incs == "config":
+        pair, n = (_INC1, _INC2), 3 * CONFIG.samples_per_frame
+    else:
+        pair, n = (PHASE_INCS[incs], -PHASE_INCS[incs]), PHASE_OTHER_N
+    ph0 = torch.full((2,), PHASE_STARTS[start], dtype=torch.float64)
+    n0 = pt.phase_track_cuda.launches
+    got, got_f = pt.phase_track_cuda(ph0.to(cuda_dev), pair, n)
+    torch.cuda.synchronize()
+    assert pt.phase_track_cuda.launches == n0 + 1
+    ref, ref_f = pt.phase_track_reference(ph0, pair, n)
+    assert torch.equal(got.cpu().view(torch.int64), ref.view(torch.int64))
+    assert torch.equal(got_f.cpu().view(torch.int64), ref_f.view(torch.int64))
+    # the tables of the same walk, in one chunk (n < CHUNK)
+    tables = pt.segment_tables(*pt.launch(pt.build.library(),
+                                          ph0.to(cuda_dev), pair, n)[2:])
+    assert tables == pt.phase_segments_reference(ph0, pair, n)[2]
+
+
+def test_phase_track_kernel_near_the_wraps_and_in_chunks(cuda_dev):
+    """From start phases near the wrap points (the recurrence wraps on the
+    first samples) over 3 frames, as in one call of the default chunk and
+    as several chunks of 10,000 samples; one tone over 7 samples."""
     from opv_tpu_torch.ops import phase_track as pt
     from opv_tpu_torch.tx.modulator import _INC1, _INC2
     ph0 = torch.tensor([-3.1, 3.14], dtype=torch.float64)
     n = 3 * CONFIG.samples_per_frame
-    n0 = pt.phase_track_cuda.launches
     got, got_f = pt.phase_track_cuda(ph0.to(cuda_dev), (_INC1, _INC2), n)
-    torch.cuda.synchronize()
-    assert pt.phase_track_cuda.launches == n0 + 1
     ref, ref_f = pt.phase_track_reference(ph0, (_INC1, _INC2), n)
     assert torch.equal(got.cpu(), ref) and torch.equal(got_f.cpu(), ref_f)
+    lib = pt.build.library()
+    chunked, chunked_f, _, _ = pt.launch(lib, ph0.to(cuda_dev),
+                                         (_INC1, _INC2), n, chunk=10_000)
+    assert torch.equal(chunked.cpu(), ref) and torch.equal(chunked_f.cpu(), ref_f)
     one, one_f = pt.phase_track_cuda(ph0[:1].to(cuda_dev), (_INC1,), 7)
     r1, r1_f = pt.phase_track_reference(ph0[:1], (_INC1,), 7)
     assert torch.equal(one.cpu(), r1) and torch.equal(one_f.cpu(), r1_f)
+    empty, same = pt.phase_track_cuda(ph0.to(cuda_dev), (_INC1, _INC2), 0)
+    assert empty.shape == (2, 0) and torch.equal(same.cpu(), ph0)
 
 
 def test_exact_modulator_on_card_equals_reference_capture(cuda_dev):
