@@ -1,0 +1,10 @@
+"""idle_pct: the share of the traced window in which no operation ran on
+the device (the profiler's kernels, copies and sets), in %."""
+
+UNIT = "%"
+
+
+def read(ctx):
+    if ctx.trace is None:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
