@@ -46,7 +46,11 @@ Options:
             histogram
   --profile DIR
             write a torch.profiler Chrome trace of the streaming run to
-            DIR/opv_demod_trace.json
+            DIR/opv_demod_trace.json; with -s --fast the engine runs with
+            its timing records on, so the trace also carries the engine's
+            and the wideband receiver's host spans (opv.append,
+            opv.launch, opv.resolve, opv.slide, opv.wideband.channelize,
+            ...)
   --device  cuda (default), cuda:N or cpu
 
 Exit code 0 iff at least one frame decoded (opv-demod.cpp:1124, 1216).
@@ -348,6 +352,12 @@ def _tracking(args, stdin, dev, emit_frame, metrics_out):
     return sd
 
 
+def _timing(args, metrics) -> bool:
+    """-s --fast: the engine's timing records, for --metrics and for
+    --profile's spans."""
+    return metrics is not None or bool(args.profile_dir)
+
+
 def _channels(args, stdin, dev, handle, metrics):
     """--channels N: READ_BYTES reads of sample-interleaved channels, each
     fed to the pipelined engine as an int16 view cast on its device.
@@ -359,7 +369,8 @@ def _channels(args, stdin, dev, handle, metrics):
     # printed; the tuples are the synchronous engine's
     mc = LockedStreamDemodulator(channels=nch, pipeline=True, dtype=args.buf,
                                  block_frames=args.block or 4,
-                                 timing=metrics is not None, device=dev)
+                                 timing=_timing(args, metrics),
+                                 device=dev)
     n_samples = 0
     carry = b""
     quantum = 4 * nch          # one sample instant: nch interleaved IQ pairs
@@ -393,7 +404,7 @@ def _wideband(args, stdin, dev, handle, metrics):
     from opv_tpu_torch.stream import WidebandReceiver
     k = args.wideband
     wb = WidebandReceiver(k, block_frames=args.block or 2, pipeline=True,
-                          dtype=args.buf, timing=metrics is not None,
+                          dtype=args.buf, timing=_timing(args, metrics),
                           device=dev)
     inner = wb.demod
     q = wb.quantum

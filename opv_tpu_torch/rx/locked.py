@@ -42,6 +42,7 @@ from opv_tpu_torch.rx.fast import (dense_soft, dense_sync, double_precision,
                                    phase_rot, real_columns, tone_vectors)
 from opv_tpu_torch.rx.frame_decoder import decode_payloads
 from opv_tpu_torch.rx.sync import normalized_sync, sync_pattern
+from opv_tpu_torch.utils.spans import OFF
 
 _TWO_PI = 2.0 * math.pi
 _SPS = CONFIG.samples_per_symbol
@@ -189,7 +190,7 @@ def soft_stage_operands(samples: torch.Tensor, r: torch.Tensor,
 
 def _symbol_soft_batch(samples: torch.Tensor, r: torch.Tensor,
                        freq_offset: torch.Tensor, nsym: int, scale=None,
-                       frac=None) -> torch.Tensor:
+                       frac=None, spans=None) -> torch.Tensor:
     """Symbol-grid tone correlation at per-channel phase r -> (C, nsym).
 
     The phase-aligned window of symbol s spans the tail of static row s
@@ -204,8 +205,10 @@ def _symbol_soft_batch(samples: torch.Tensor, r: torch.Tensor,
     frac on the head side.  int8 rows use the int8 kernel round(k*127) and
     an exact integer dot, rescaled by INT8_SCALE/127 (or scale/127 per
     channel).  The correlation and the combine run in registry.symbol_soft
-    (the fused CUDA kernel for CUDA tensors)."""
-    ops = soft_stage_operands(samples, r, freq_offset, nsym, scale, frac)
+    (the fused CUDA kernel for CUDA tensors).  spans: a timing recorder
+    (utils/spans.py) that takes the operands' device span, "operands"."""
+    with spans.pair("operands", samples.device) if spans else OFF:
+        ops = soft_stage_operands(samples, r, freq_offset, nsym, scale, frac)
     return registry.symbol_soft(*ops, nsym)
 
 
@@ -230,7 +233,7 @@ def _extract_frames(soft: torch.Tensor, k0: torch.Tensor, n_frames: int):
 
 
 def _locked_body(samples, p0, freq_offset, n_frames: int, scale=None,
-                 frac=None):
+                 frac=None, spans=None):
     c = samples.shape[0]
     windowed = samples.dim() == 3 and samples.shape[-1] == 2 * _SPS
     n = samples.shape[1] * _SPS if windowed else samples.shape[1]
@@ -238,7 +241,8 @@ def _locked_body(samples, p0, freq_offset, n_frames: int, scale=None,
     r = p0 % _SPS
     k0 = (p0 - r) // _SPS
     nsym = (n - _SPS) // _SPS
-    soft = _symbol_soft_batch(samples, r, freq_offset, nsym, scale, frac)
+    soft = _symbol_soft_batch(samples, r, freq_offset, nsym, scale, frac,
+                              spans)
     payloads, q, raw = _extract_frames(soft, k0, n_frames)
     frames, metrics, ok = decode_payloads(payloads.reshape(-1, _EB))
     ok = ok.reshape(c, n_frames)
@@ -261,11 +265,13 @@ def _locked_body(samples, p0, freq_offset, n_frames: int, scale=None,
 
 def rx_locked_steady(samples: torch.Tensor, p0: torch.Tensor,
                      freq_offset: torch.Tensor, n_frames: int, scale=None,
-                     frac=None):
+                     frac=None, spans=None):
     """Steady-state hot loop with the grid (p0, frac) and CFO known: blocks
     that advance by whole frame intervals keep p0.  Returns the same dict
-    as rx_locked."""
-    return _locked_body(samples, p0, freq_offset, n_frames, scale, frac)
+    as rx_locked.  spans: the engine's timing recorder, if any (the soft
+    stage's operands are its device span "operands")."""
+    return _locked_body(samples, p0, freq_offset, n_frames, scale, frac,
+                        spans)
 
 
 def rx_locked_reacquire(samples: torch.Tensor, p0_old: torch.Tensor,

@@ -54,8 +54,6 @@ waits for the work queued before it.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -68,6 +66,7 @@ from opv_tpu_torch.rx.locked import (INT8_SCALE, fold_est_np,
 from opv_tpu_torch.parallel.mesh import channel_shards, process_rank
 from opv_tpu_torch.parallel.multihost import all_gather
 from opv_tpu_torch.stream.state import to_device, to_host
+from opv_tpu_torch.utils.spans import OFF, Recorder, leaf_ms
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
@@ -249,7 +248,19 @@ class LockedStreamDemodulator:
         timing: record per block the program tag, the time spent waiting
         on the block's results (device_wait_ms: in pipeline mode the wait
         left after the overlap) and the host lifecycle time (host_ms) in
-        block_stats; stats() aggregates them.
+        block_stats; stats() aggregates them.  Beside it, block_trace
+        holds a record a block (utils/spans.py): how its program was
+        launched ("kept": on the prediction, and used; "relaunched": the
+        prediction was discarded; "exact": no prediction), the device
+        programs launched for it, whether it ran a retime or a re-hunt,
+        the host ms of every span closed since the last record (append,
+        launch with its retime and sync_wait leaves, resolve with its
+        resolve.wait, resolve.emit, resolve.rehunt, resolve.lifecycle and
+        agc leaves, slide, and record: the making of the previous
+        record) and the device ms of every program's CUDA event pair
+        completed by then (steady, with the soft stage's operands inside
+        it, reacquire, retime).  The spans are also profiler CPU ranges
+        named "opv.<span>".  Both lists stay empty with timing off.
 
         mesh: a parallel.mesh.Mesh with a 'ch' axis (channels divisible by
         its size); it replaces device=.  The window buffer is one (C/nch,
@@ -366,6 +377,8 @@ class LockedStreamDemodulator:
         self._pending = None            # in-flight block (pipeline mode)
         self.timing = bool(timing)
         self.block_stats: list = []
+        self.block_trace: list = []
+        self._rec = Recorder() if self.timing else None
         self._burst_salvage = bool(single_frame_burst)
 
     # -- device programs (plain torch on the engine's device) ------------ #
@@ -418,14 +431,16 @@ class LockedStreamDemodulator:
     def _get(self, out):
         """Fetch a tuple of device values to the host now: one synchronize,
         then the copies (block results go through _Fetch instead)."""
-        for d in self._all_devices():
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        if self.mesh is None:
-            return tuple(to_host(v) for v in out)
-        host = self._join({i: [to_host(p) for p in v.parts]
-                           for i, v in enumerate(out)})
-        return tuple(host[i] for i in range(len(out)))
+        rec = self._rec
+        with rec.span("sync_wait") if rec else OFF:
+            for d in self._all_devices():
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            if self.mesh is None:
+                return tuple(to_host(v) for v in out)
+            host = self._join({i: [to_host(p) for p in v.parts]
+                               for i, v in enumerate(out)})
+            return tuple(host[i] for i in range(len(out)))
 
     def _full(self, v) -> torch.Tensor:
         """A copy of a per-channel device value as one (C, ...) tensor on
@@ -525,7 +540,7 @@ class LockedStreamDemodulator:
     def _steady(self, buf, p0, foff, scale, frac, n_frames: int):
         return rx_locked_steady(buf, p0, foff, n_frames,
                                 scale=scale if self._int8 else None,
-                                frac=frac)
+                                frac=frac, spans=self._rec)
 
     def _reacquire(self, buf, p0, foff, keep, scale, frac):
         x = self._cplx(buf, scale)
@@ -607,27 +622,30 @@ class LockedStreamDemodulator:
         so a sub-row tail pends until the next feed/flush.  Returns decoded
         frame tuples for every full window completed by this feed (and, in
         eager mode, for every block whose owned slots it completed)."""
-        x, ilv = self._ingest(samples)
-        if self._pend is not None:
-            # sub-row carry from the previous feed: unify in the pairs
-            # domain (rare — only non-40-aligned feeds reach here)
-            x, ilv = self._with_pend(self._pend, x, ilv), True
-            self._pend = None
-        if self._agc and x.shape[1]:
-            # per-channel level statistics on the device (a sub-row tail is
-            # counted on the feed it arrives with; its re-count when it is
-            # prepended above is noise at AGC scale)
-            acc = self._stat_p if ilv else self._stat_c
-            self._stat_ss, self._stat_max = acc(self._stat_ss,
-                                                self._stat_max, x)
-            self._stat_cnt += 2 * x.shape[1]
-            if not self._agc_primed:
-                # first feed: adopt the measured step before anything is
-                # quantized (one synchronous fetch at stream start), so a
-                # weak or deep-low-SNR stream never writes its first window
-                # at the wrong step
-                self._agc_primed = True
-                self._agc_update(force=True)
+        rec = self._rec
+        with rec.span("append") if rec else OFF:
+            x, ilv = self._ingest(samples)
+            if self._pend is not None:
+                # sub-row carry from the previous feed: unify in the pairs
+                # domain (rare — only non-40-aligned feeds reach here)
+                x, ilv = self._with_pend(self._pend, x, ilv), True
+                self._pend = None
+            if self._agc and x.shape[1]:
+                # per-channel level statistics on the device (a sub-row
+                # tail is counted on the feed it arrives with; its re-count
+                # when it is prepended above is noise at AGC scale)
+                acc = self._stat_p if ilv else self._stat_c
+                self._stat_ss, self._stat_max = acc(self._stat_ss,
+                                                    self._stat_max, x)
+                self._stat_cnt += 2 * x.shape[1]
+                if not self._agc_primed:
+                    # first feed: adopt the measured step before anything
+                    # is quantized (one synchronous fetch at stream start),
+                    # so a weak or deep-low-SNR stream never writes its
+                    # first window at the wrong step
+                    self._agc_primed = True
+                    with rec.span("agc") if rec else OFF:
+                        self._agc_update(force=True)
         out = []
         off = 0
         n = x.shape[1]
@@ -637,8 +655,9 @@ class LockedStreamDemodulator:
             if take < room:
                 take -= take % self.sps             # sub-row tail pends
             if take:
-                self._append(self._buf, x, off, off + take, ilv,
-                             self._count // self.sps, self._scale)
+                with rec.span("append") if rec else OFF:
+                    self._append(self._buf, x, off, off + take, ilv,
+                                 self._count // self.sps, self._scale)
                 self._count += take
                 off += take
             if self._count >= self.window:
@@ -646,7 +665,8 @@ class LockedStreamDemodulator:
             elif take == 0:
                 break
         if off < n:
-            self._pend = self._tail(x, off, ilv)
+            with rec.span("append") if rec else OFF:
+                self._pend = self._tail(x, off, ilv)
         out.extend(self._eager_poll())
         return out
 
@@ -706,11 +726,12 @@ class LockedStreamDemodulator:
     def _process(self, valid_limit: int | None = None, eager: bool = False):
         if self.pipeline and valid_limit is None:
             return self._process_pipelined()
-        out, wrap, p0w, tag = self._run_block(self._buf)
+        out, wrap, p0w, tag, programs = self._run_block(self._buf)
         results = self._resolve_block(out, self._buf, valid_limit, wrap,
                                       p0w, tag, self._abs_base,
                                       own_end=self.advance if eager
-                                      else None)
+                                      else None,
+                                      launch=("exact", programs))
         if valid_limit is None or eager:
             self._advance_window()
         return results
@@ -733,142 +754,185 @@ class LockedStreamDemodulator:
 
     def _run_block(self, buf):
         """Retime (if flagged) and launch this window's program with the
-        current host state.  Returns (out_dev, wrap, p0_wrapped, tag);
-        mutates p0/refresh bookkeeping, not the lock lifecycle."""
+        current host state.  Returns (out_dev, wrap, p0_wrapped, tag,
+        programs: the names of the device programs launched); mutates
+        p0/refresh bookkeeping, not the lock lifecycle."""
         # timing refresh: micro-adjust p0 for flagged locked channels from
         # the dense sync correlation around the next expected sync.  Lock
         # state is untouched — a faded signal yields delta 0 and the
         # flywheel applies.
-        put = self._put_state
-        wrap = np.zeros(self.channels, bool)
-        p0_wrapped = self.p0
-        retune = self.refresh & self.locked
-        if retune.any():
-            out_rt = self._retime(buf, put("p0", self.p0),
-                                  put("foff", self.freq_offset),
-                                  self._scale)
-            delta, frac_new, fold = self._get(out_rt)
-            delta = np.where(retune, delta, 0).astype(np.int32)
-            # energy gate: the retime window is anchored one frame ahead of
-            # p0, so at a burst tail (or in a deep fade) it folds silence;
-            # a near-zero-energy fold against the channel's per-window
-            # average would walk the grid off the final frame
-            with np.errstate(invalid="ignore", divide="ignore"):
-                avg = self._fold_acc.sum(axis=1) \
-                    / np.maximum(self._fold_w, 1e-9)
-            weak = (self._fold_ok & (self._fold_w > 0)
-                    & (fold.sum(axis=1) < 0.3 * avg))
-            retune = retune & ~weak
-            # trust region: a drift-sized jump needs sign-consistent
-            # confirmation by the next retime before the fresh single-window
-            # estimate is adopted; noise-regime folds accumulate and the
-            # grid re-estimates from the deep average
-            cur = self.p0.astype(np.float64) + self.frac
-            est_one = (self.p0 + delta).astype(np.float64) + frac_new
-            dev = est_one - cur
-            big = np.abs(dev) > self._TIMING_TRUST
-            sgn = np.sign(dev).astype(np.int8)
-            half = self.sps // 2
-            est_acc0 = (self.p0 - half).astype(np.float64) \
-                + fold_est_np(self._fold_acc)
-            # a deep accumulator vetoes a sign-confirmed big jump unless the
-            # deep estimate leans the same way by more than half a trust
-            # radius (magnitude, not just sign: with no drift its sign is a
-            # coin flip)
-            deep = self._fold_ok & (self._fold_w >= self._FOLD_DEEP)
-            agree = ((np.sign(est_acc0 - cur).astype(np.int8) == sgn)
-                     & (np.abs(est_acc0 - cur) > 0.5 * self._TIMING_TRUST))
-            adopt = retune & big & (sgn == self._big_dir) & (~deep | agree)
-            hold = retune & big & ~adopt
-            self._big_dir[hold] = sgn[hold]
-            self._big_dir[retune & ~big] = 0
-            # adoption re-seeds the accumulator; held and noise-regime
-            # folds both accumulate
-            seed = adopt | (retune & ~self._fold_ok)
-            accum = retune & ~seed
-            self._fold_acc[seed] = fold[seed]
-            self._fold_w[seed] = 1.0
-            # grow-into-EMA: a uniform running sum until the weight reaches
-            # the EMA's steady-state depth 1/(1-D), then the fixed decay
-            d_eff = np.where(
-                self._fold_w < 1.0 / (1.0 - self._FOLD_DECAY) - 1.0,
-                1.0, self._FOLD_DECAY)
-            self._fold_acc[accum] = (d_eff[accum, None]
-                                     * self._fold_acc[accum] + fold[accum])
-            self._fold_w[accum] = d_eff[accum] * self._fold_w[accum] + 1
-            self._fold_ok |= retune
-            est_acc = (self.p0 - half).astype(np.float64) \
-                + fold_est_np(self._fold_acc)
-            est = np.where(adopt, est_one, est_acc)
-            # a held channel with a shallow accumulator takes a step toward
-            # the fresh estimate clipped to the trust radius; deep channels
-            # follow the deep estimate
-            step = cur + np.clip(dev, -self._TIMING_TRUST,
-                                 self._TIMING_TRUST)
-            est = np.where(hold & ~deep, step, est)
-            blend = np.where(retune, est, cur)
-            p0n = np.floor(blend).astype(np.int32)
-            frac_n = (blend - p0n).astype(np.float32)
-            # p0n < 0: the drifted grid steps back across the window start.
-            # The straddling frame is still inside this window, on the old
-            # grid at slot p0 + bf*spf: process this block on the old grid
-            # with one extra slot and ownership extended by a frame, then
-            # advance the corrected grid one frame for the next block
-            wrap = p0n < 0
-            moved = retune & (p0n != self.p0)
-            # keep the accumulator aligned with the adopted grid: a p0 move
-            # by d shifts the apex by -d bins (wraps re-anchor next refresh)
-            for c in np.flatnonzero(moved):
-                if wrap[c]:
-                    self._fold_ok[c] = False
-                    continue
-                d = int(p0n[c]) - int(self.p0[c])
-                if abs(d) >= self._fold_acc.shape[1]:
-                    self._fold_ok[c] = False
-                else:
-                    self._fold_acc[c] = np.roll(self._fold_acc[c], -d)
-                    if d > 0:
-                        self._fold_acc[c, -d:] = 0.0
-                    elif d < 0:
-                        self._fold_acc[c, :-d] = 0.0
-            self.p0 = np.where(wrap, self.p0, p0n).astype(np.int32)
-            p0_wrapped = np.where(wrap, p0n + self.spf,
-                                  self.p0).astype(np.int32)
-            self.refreshes += int(moved.sum())
-            self.metric_ema[moved] = np.nan  # fresh grid -> fresh baseline
-            # adopt the blended frac for every retuned non-wrap channel (a
-            # wrap processes this block on the old grid)
-            adopt = retune & ~wrap
-            self.frac = np.where(adopt, frac_n,
-                                 self.frac).astype(np.float32)
-        self.refresh[:] = False
+        rec = self._rec
+        with rec.span("launch") if rec else OFF:
+            put = self._put_state
+            wrap = np.zeros(self.channels, bool)
+            p0_wrapped = self.p0
+            programs = ()
+            retune = self.refresh & self.locked
+            if retune.any():
+                with rec.pair("retime", self.device) if rec else OFF:
+                    out_rt = self._retime(buf, put("p0", self.p0),
+                                          put("foff", self.freq_offset),
+                                          self._scale)
+                delta, frac_new, fold = self._get(out_rt)
+                with rec.span("retime") if rec else OFF:
+                    wrap, p0_wrapped = self._retime_grid(retune, delta,
+                                                         frac_new, fold)
+                programs = ("retime",)
+            self.refresh[:] = False
 
-        self._snap_stats()
-        if self.locked.all():
-            n_frames = self.block_frames + (1 if wrap.any() else 0)
-            out = self._steady(buf, put("p0", self.p0),
-                               put("foff", self.freq_offset), self._scale,
-                               put("frac", self.frac), n_frames)
-            tag = "steady"
-        else:
-            # mixed lock states never use the extra-slot program; a wrap
-            # coinciding with another channel's re-acquisition forfeits the
-            # straddler (rare corner; the grid still corrects)
-            out = self._reacquire(buf, put("p0", self.p0),
-                                  put("foff", self.freq_offset),
-                                  put("keep", self.locked), self._scale,
-                                  put("frac", self.frac))
-            tag = "reacquire"
-        return self._fetch(out), wrap, p0_wrapped, tag
+            self._snap_stats()
+            if self.locked.all():
+                n_frames = self.block_frames + (1 if wrap.any() else 0)
+                with rec.pair("steady", self.device) if rec else OFF:
+                    out = self._steady(buf, put("p0", self.p0),
+                                       put("foff", self.freq_offset),
+                                       self._scale, put("frac", self.frac),
+                                       n_frames)
+                tag = "steady"
+            else:
+                # mixed lock states never use the extra-slot program; a
+                # wrap coinciding with another channel's re-acquisition
+                # forfeits the straddler (rare corner; the grid still
+                # corrects)
+                with rec.pair("reacquire", self.device) if rec else OFF:
+                    out = self._reacquire(buf, put("p0", self.p0),
+                                          put("foff", self.freq_offset),
+                                          put("keep", self.locked),
+                                          self._scale, put("frac", self.frac))
+                tag = "reacquire"
+            return (self._fetch(out), wrap, p0_wrapped, tag,
+                    programs + (tag,))
+
+    def _retime_grid(self, retune, delta, frac_new, fold):
+        """The host side of a timing refresh: the retime's estimates
+        (delta, frac_new, fold) for the `retune` channels through the
+        energy gate, the fold accumulator and the trust region into p0,
+        frac and the accumulator.  Returns (wrap, p0_wrapped)."""
+        delta = np.where(retune, delta, 0).astype(np.int32)
+        # energy gate: the retime window is anchored one frame ahead of
+        # p0, so at a burst tail (or in a deep fade) it folds silence;
+        # a near-zero-energy fold against the channel's per-window
+        # average would walk the grid off the final frame
+        with np.errstate(invalid="ignore", divide="ignore"):
+            avg = self._fold_acc.sum(axis=1) \
+                / np.maximum(self._fold_w, 1e-9)
+        weak = (self._fold_ok & (self._fold_w > 0)
+                & (fold.sum(axis=1) < 0.3 * avg))
+        retune = retune & ~weak
+        # trust region: a drift-sized jump needs sign-consistent
+        # confirmation by the next retime before the fresh single-window
+        # estimate is adopted; noise-regime folds accumulate and the
+        # grid re-estimates from the deep average
+        cur = self.p0.astype(np.float64) + self.frac
+        est_one = (self.p0 + delta).astype(np.float64) + frac_new
+        dev = est_one - cur
+        big = np.abs(dev) > self._TIMING_TRUST
+        sgn = np.sign(dev).astype(np.int8)
+        half = self.sps // 2
+        est_acc0 = (self.p0 - half).astype(np.float64) \
+            + fold_est_np(self._fold_acc)
+        # a deep accumulator vetoes a sign-confirmed big jump unless the
+        # deep estimate leans the same way by more than half a trust
+        # radius (magnitude, not just sign: with no drift its sign is a
+        # coin flip)
+        deep = self._fold_ok & (self._fold_w >= self._FOLD_DEEP)
+        agree = ((np.sign(est_acc0 - cur).astype(np.int8) == sgn)
+                 & (np.abs(est_acc0 - cur) > 0.5 * self._TIMING_TRUST))
+        adopt = retune & big & (sgn == self._big_dir) & (~deep | agree)
+        hold = retune & big & ~adopt
+        self._big_dir[hold] = sgn[hold]
+        self._big_dir[retune & ~big] = 0
+        # adoption re-seeds the accumulator; held and noise-regime
+        # folds both accumulate
+        seed = adopt | (retune & ~self._fold_ok)
+        accum = retune & ~seed
+        self._fold_acc[seed] = fold[seed]
+        self._fold_w[seed] = 1.0
+        # grow-into-EMA: a uniform running sum until the weight reaches
+        # the EMA's steady-state depth 1/(1-D), then the fixed decay
+        d_eff = np.where(
+            self._fold_w < 1.0 / (1.0 - self._FOLD_DECAY) - 1.0,
+            1.0, self._FOLD_DECAY)
+        self._fold_acc[accum] = (d_eff[accum, None]
+                                 * self._fold_acc[accum] + fold[accum])
+        self._fold_w[accum] = d_eff[accum] * self._fold_w[accum] + 1
+        self._fold_ok |= retune
+        est_acc = (self.p0 - half).astype(np.float64) \
+            + fold_est_np(self._fold_acc)
+        est = np.where(adopt, est_one, est_acc)
+        # a held channel with a shallow accumulator takes a step toward
+        # the fresh estimate clipped to the trust radius; deep channels
+        # follow the deep estimate
+        step = cur + np.clip(dev, -self._TIMING_TRUST,
+                             self._TIMING_TRUST)
+        est = np.where(hold & ~deep, step, est)
+        blend = np.where(retune, est, cur)
+        p0n = np.floor(blend).astype(np.int32)
+        frac_n = (blend - p0n).astype(np.float32)
+        # p0n < 0: the drifted grid steps back across the window start.
+        # The straddling frame is still inside this window, on the old
+        # grid at slot p0 + bf*spf: process this block on the old grid
+        # with one extra slot and ownership extended by a frame, then
+        # advance the corrected grid one frame for the next block
+        wrap = p0n < 0
+        moved = retune & (p0n != self.p0)
+        # keep the accumulator aligned with the adopted grid: a p0 move
+        # by d shifts the apex by -d bins (wraps re-anchor next refresh)
+        for c in np.flatnonzero(moved):
+            if wrap[c]:
+                self._fold_ok[c] = False
+                continue
+            d = int(p0n[c]) - int(self.p0[c])
+            if abs(d) >= self._fold_acc.shape[1]:
+                self._fold_ok[c] = False
+            else:
+                self._fold_acc[c] = np.roll(self._fold_acc[c], -d)
+                if d > 0:
+                    self._fold_acc[c, -d:] = 0.0
+                elif d < 0:
+                    self._fold_acc[c, :-d] = 0.0
+        self.p0 = np.where(wrap, self.p0, p0n).astype(np.int32)
+        p0_wrapped = np.where(wrap, p0n + self.spf,
+                              self.p0).astype(np.int32)
+        self.refreshes += int(moved.sum())
+        self.metric_ema[moved] = np.nan  # fresh grid -> fresh baseline
+        # adopt the blended frac for every retuned non-wrap channel (a
+        # wrap processes this block on the old grid)
+        adopt = retune & ~wrap
+        self.frac = np.where(adopt, frac_n,
+                             self.frac).astype(np.float32)
+        return wrap, p0_wrapped
 
     def _resolve_block(self, out, buf, valid_limit, wrap, p0_wrapped, tag,
-                       base, own_end=None):
+                       base, own_end=None, launch=("exact", ())):
         """Wait for one block's results (a _Fetch) and run the host sync
         lifecycle.  own_end: block-ownership end override (an eager
         partial-window block owns the normal advance span while
-        valid_limit marks the filled extent)."""
-        t_res = time.monotonic() if self.timing else None
-        self._fetch_ms = 0.0
+        valid_limit marks the filled extent).  launch: how the block's
+        program was launched and the names of the device programs
+        launched for it, for its timing records."""
+        rec = self._rec
+        with rec.span("resolve") if rec else OFF:
+            results, rehunt = self._resolve(out, buf, valid_limit, wrap,
+                                            p0_wrapped, tag, base, own_end)
+        if rec is not None:
+            # the records' own cost lands in the next block's record
+            with rec.span("record"):
+                kind, programs = launch
+                r = rec.block(kind, len(programs) + rehunt,
+                              "retime" in programs, rehunt)
+                wait = leaf_ms(r, "resolve.wait", under="resolve")
+                self.block_stats.append(dict(
+                    tag=tag, device_wait_ms=round(wait, 3),
+                    host_ms=round(r["host_ms"]["resolve"] - wait, 3)))
+                self.block_trace.append(r)
+        return results
+
+    def _resolve(self, out, buf, valid_limit, wrap, p0_wrapped, tag, base,
+                 own_end):
+        """_resolve_block's lifecycle: (the block's tuples, whether a
+        channel that dropped lock was re-hunted)."""
+        rec = self._rec
         if tag == "reacquire":
             self.reacquisitions += 1
         self._want_refresh[:] = False
@@ -882,49 +946,49 @@ class LockedStreamDemodulator:
         # sample and scans on, src/opv-demod.cpp:695-713), so a burst
         # starting later in the same window keeps its first frame
         dropped = prev_locked & ~self.locked
-        if dropped.any():
-            self.reacquisitions += 1
-            self._snap_stats()
-            out2 = self._reacquire(buf, self._put_state("p0", self.p0),
-                                   self._put_state("foff", self.freq_offset),
-                                   self._put_state("keep", ~dropped),
-                                   self._scale,
-                                   self._put_state("frac", self.frac))
-            results.extend(self._emit(self._fetch(out2), valid_limit, base,
-                                      only=dropped, min_pos=self._dropped_at,
-                                      own_end=own_end))
-        warm = max(4.0, self._FOLD_WARM_FOLDS / self.block_frames)
-        with np.errstate(invalid="ignore"):
-            warming = ((self._fold_w < warm)
-                       & (self.metric_ema > self._WARM_METRIC_MIN))
-        # miss > 0 (flywheel riding at block end): the window's trailing
-        # frame intervals hold no signal, so a retime fold over them would
-        # be garbage
-        self.refresh = ((self._want_refresh | warming)
-                        & self.locked & (self.miss == 0))
-        # the fold accumulator is anchored to a locked channel's stable
-        # grid: any lock transition re-anchors p0
-        stable = self.locked & prev_locked
-        self._fold_ok &= stable
-        self._fold_w[~stable] = 0.0
-        self._big_dir[~stable] = 0
-        self._blocks += 1
+        rehunt = bool(dropped.any())
+        if rehunt:
+            with rec.span("resolve.rehunt") if rec else OFF:
+                self.reacquisitions += 1
+                self._snap_stats()
+                put = self._put_state
+                with rec.pair("reacquire", self.device) if rec else OFF:
+                    out2 = self._reacquire(buf, put("p0", self.p0),
+                                           put("foff", self.freq_offset),
+                                           put("keep", ~dropped),
+                                           self._scale, put("frac", self.frac))
+                results.extend(self._emit(self._fetch(out2), valid_limit,
+                                          base, only=dropped,
+                                          min_pos=self._dropped_at,
+                                          own_end=own_end))
+        with rec.span("resolve.lifecycle") if rec else OFF:
+            warm = max(4.0, self._FOLD_WARM_FOLDS / self.block_frames)
+            with np.errstate(invalid="ignore"):
+                warming = ((self._fold_w < warm)
+                           & (self.metric_ema > self._WARM_METRIC_MIN))
+            # miss > 0 (flywheel riding at block end): the window's
+            # trailing frame intervals hold no signal, so a retime fold
+            # over them would be garbage
+            self.refresh = ((self._want_refresh | warming)
+                            & self.locked & (self.miss == 0))
+            # the fold accumulator is anchored to a locked channel's stable
+            # grid: any lock transition re-anchors p0
+            stable = self.locked & prev_locked
+            self._fold_ok &= stable
+            self._fold_w[~stable] = 0.0
+            self._big_dir[~stable] = 0
+            self._blocks += 1
         # AGC cadence, plus every lock transition: a lock loss is often a
         # level change (a burst on a quiet channel, a fade), and the re-hunt
         # succeeds only once the window is quantized at the new step.  The
         # transition, not the unlocked state, triggers it, so a bank with
         # idle channels still updates at the cadence only.
         if self._agc and (self._blocks % self._AGC_BLOCKS == 0
-                          or dropped.any()
+                          or rehunt
                           or (~prev_locked & self.locked).any()):
-            self._agc_update()
-        if t_res is not None:
-            total_ms = (time.monotonic() - t_res) * 1e3
-            self.block_stats.append(dict(
-                tag=tag,
-                device_wait_ms=round(self._fetch_ms, 3),
-                host_ms=round(total_ms - self._fetch_ms, 3)))
-        return results
+            with rec.span("agc") if rec else OFF:
+                self._agc_update()
+        return results, rehunt
 
     def _put_state(self, name, arr):
         """Device copy of a small host lock-state vector, cached on its
@@ -942,7 +1006,9 @@ class LockedStreamDemodulator:
     def _advance_window(self):
         # the slide builds a new buffer, so a window retained by a block in
         # flight (pipeline mode) is never written
-        self._buf = self._slide(self._buf)
+        rec = self._rec
+        with rec.span("slide") if rec else OFF:
+            self._buf = self._slide(self._buf)
         self._count -= self.advance
         self._abs_base += self.advance
         # grid positions repeat every frame, so after advancing by an exact
@@ -990,9 +1056,10 @@ class LockedStreamDemodulator:
         block again on its retained window with the exact state."""
         if self._pending is None:
             # first window: the host state is exact, launch directly
-            out, wrap, p0w, tag = self._run_block(self._buf)
+            out, wrap, p0w, tag, programs = self._run_block(self._buf)
             self._pending = dict(out=out, buf=self._buf, wrap=wrap, p0w=p0w,
-                                 tag=tag, base=self._abs_base)
+                                 tag=tag, base=self._abs_base,
+                                 launch=("exact", programs))
             self._advance_window()
             return []
 
@@ -1005,16 +1072,22 @@ class LockedStreamDemodulator:
         # resolve the previous block (its fetch overlaps the launched block)
         results = self._resolve_block(prev["out"], prev["buf"], None,
                                       prev["wrap"], prev["p0w"], prev["tag"],
-                                      prev["base"])
+                                      prev["base"], launch=prev["launch"])
         self.p0 = self.p0 % self.spf     # previous -> current window coords
         retune_actual = self.refresh & self.locked
+        kind, discarded = "kept", ()
         if (launched is None or retune_actual.any()
                 or not np.array_equal(self.locked, pred_locked)):
             # prediction invalid: launch this window again with exact state
+            if launched is None:
+                kind = "exact"
+            else:
+                kind, discarded = "relaunched", launched[4]
             launched = self._run_block(self._buf)
-        out, wrap, p0w, tag = launched
+        out, wrap, p0w, tag, programs = launched
         self._pending = dict(out=out, buf=self._buf, wrap=wrap, p0w=p0w,
-                             tag=tag, base=self._abs_base)
+                             tag=tag, base=self._abs_base,
+                             launch=(kind, discarded + programs))
         self._advance_window()
         return results
 
@@ -1023,24 +1096,28 @@ class LockedStreamDemodulator:
         p0, freq_offset and frac chain on the device from the previous
         block's unfetched outputs (a wrap block's wrapped channels take the
         host-computed p0_wrapped), the program from the last resolved lock
-        state.  Queues work only: nothing here waits for the device."""
-        dev = prev["out"].dev
-        wrapped = prev["wrap"].any()
-        p0_dev = self._chain_p0(dev["p0"],
-                                self._put(prev["wrap"]) if wrapped else None,
-                                self._put(prev["p0w"]) if wrapped else None)
-        foff_dev, frac_dev = dev["freq_offset"], dev["frac"]
-        self._snap_stats()
-        if pred_locked.all():
-            o = self._steady(self._buf, p0_dev, foff_dev, self._scale,
-                             frac_dev, self.block_frames)
-            tag = "steady"
-        else:
-            o = self._reacquire(self._buf, p0_dev, foff_dev,
-                                self._put(pred_locked), self._scale,
-                                frac_dev)
-            tag = "reacquire"
-        return self._fetch(o), np.zeros(self.channels, bool), self.p0, tag
+        state.  Queues work only: nothing here waits for the device.
+        Returns what _run_block does."""
+        rec = self._rec
+        with rec.span("launch") if rec else OFF:
+            dev = prev["out"].dev
+            wrapped = prev["wrap"].any()
+            p0_dev = self._chain_p0(
+                dev["p0"], self._put(prev["wrap"]) if wrapped else None,
+                self._put(prev["p0w"]) if wrapped else None)
+            foff_dev, frac_dev = dev["freq_offset"], dev["frac"]
+            self._snap_stats()
+            tag = "steady" if pred_locked.all() else "reacquire"
+            with rec.pair(tag, self.device) if rec else OFF:
+                if tag == "steady":
+                    o = self._steady(self._buf, p0_dev, foff_dev, self._scale,
+                                     frac_dev, self.block_frames)
+                else:
+                    o = self._reacquire(self._buf, p0_dev, foff_dev,
+                                        self._put(pred_locked), self._scale,
+                                        frac_dev)
+            return (self._fetch(o), np.zeros(self.channels, bool), self.p0,
+                    tag, (tag,))
 
     def _resolve_pending(self):
         """Drain the block in flight (pipeline mode): resolve it and return
@@ -1050,7 +1127,7 @@ class LockedStreamDemodulator:
         prev, self._pending = self._pending, None
         results = self._resolve_block(prev["out"], prev["buf"], None,
                                       prev["wrap"], prev["p0w"], prev["tag"],
-                                      prev["base"])
+                                      prev["base"], launch=prev["launch"])
         self.p0 = self.p0 % self.spf
         return results
 
@@ -1067,10 +1144,16 @@ class LockedStreamDemodulator:
         base: absolute stream index of this block's window start.
         own_end: where this block's ownership ends (default: the advance,
         or the valid limit of a flushed tail)."""
-        t_fetch = time.monotonic() if self.timing else None
-        out = out.wait()
-        if t_fetch is not None:
-            self._fetch_ms += (time.monotonic() - t_fetch) * 1e3
+        rec = self._rec
+        with rec.span("resolve.wait") if rec else OFF:
+            out = out.wait()
+        with rec.span("resolve.emit") if rec else OFF:
+            return self._emit_frames(out, valid_limit, base, only, min_pos,
+                                     own_extra, own_end)
+
+    def _emit_frames(self, out, valid_limit, base, only, min_pos, own_extra,
+                     own_end):
+        """_emit on the block's host arrays."""
         burst_only = out.get("burst_only")   # reacquire blocks only
         q = out["sync_q"]
         raw = out["sync_raw"]

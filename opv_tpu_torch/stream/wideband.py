@@ -42,6 +42,7 @@ from opv_tpu_torch.rx.channelizer import (channelize, dft_columns,
 from opv_tpu_torch.stream.locked import LockedStreamDemodulator
 from opv_tpu_torch.stream.multichannel import MultiChannelDemodulator
 from opv_tpu_torch.stream.state import to_device
+from opv_tpu_torch.utils.spans import OFF
 
 
 class WidebandReceiver:
@@ -63,7 +64,12 @@ class WidebandReceiver:
         must divide the advance for the steady path to repeat.
 
         mesh: a parallel.mesh.Mesh with a 'ch' axis, with engine="locked"
-        only (it replaces device=; see the module docstring)."""
+        only (it replaces device=; see the module docstring).
+
+        With timing, the receiver's own work goes into the locked engine's
+        timing records (utils/spans.py): the host spans wideband.append,
+        wideband.channelize (the launch) and wideband.slide, and the
+        channelizer's device span, "channelize"."""
         if engine == "locked":
             self.demod = LockedStreamDemodulator(channels=k,
                                                  block_frames=block_frames,
@@ -84,6 +90,7 @@ class WidebandReceiver:
             raise ValueError("engine must be 'locked' or 'fast'")
         self.mesh = mesh
         self.device = self.demod.device
+        self._rec = getattr(self.demod, "_rec", None)
         self.k = k
         self.taps = taps_per_branch
         self._hist = k * taps_per_branch - 1         # filter history
@@ -149,20 +156,27 @@ class WidebandReceiver:
         complex64.  Returns decoded-frame tuples (channel, frame_bytes,
         metric, sync_quality, abs_sample_pos), positions in channel-rate
         samples."""
-        x = self._put(wideband)
+        rec = self._rec
+        with rec.span("wideband.append") if rec else OFF:
+            x = self._put(wideband)
         n = x.shape[0]
         out = []
         off = 0
         while off < n:
             take = min(self.window - self._count, n - off)
-            for d, buf in self._bufs.items():
-                buf[self._count:self._count + take] = to_device(
-                    x[off:off + take], d)
+            with rec.span("wideband.append") if rec else OFF:
+                for d, buf in self._bufs.items():
+                    buf[self._count:self._count + take] = to_device(
+                        x[off:off + take], d)
             self._count += take
             off += take
             if self._count >= self.window:
-                out.extend(self.demod.feed(self._channels(self.window)))
-                self._slide()
+                with rec.span("wideband.channelize") if rec else OFF, \
+                        rec.pair("channelize", self.device) if rec else OFF:
+                    chans = self._channels(self.window)
+                out.extend(self.demod.feed(chans))
+                with rec.span("wideband.slide") if rec else OFF:
+                    self._slide()
                 self._count = self._hist
         return out
 

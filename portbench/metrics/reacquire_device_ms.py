@@ -1,0 +1,13 @@
+"""reacquire_device_ms: device ms a run of the re-acquire program (predicted,
+relaunched and re-hunt runs alike; any device idle inside the program
+counts): CUDA events around it on the engine's stream, the mean over every
+run completed in the window's blocks after the traced seconds (the
+engine's block records: program_span)."""
+
+from portbench import blocks
+
+UNIT = "ms"
+
+
+def read(ctx):
+    return blocks.device_ms(ctx, "reacquire")

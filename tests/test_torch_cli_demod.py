@@ -123,6 +123,30 @@ def test_profile_writes_a_chrome_trace(four, tmp_path):
     assert rc == 0 and out == data and trace["traceEvents"]
 
 
+@pytest.mark.parametrize("feed", ["channels", "wideband"])
+def test_profile_carries_the_engine_spans(four, wideband4, tmp_path, feed):
+    """--profile turns the engine's timing records on: the Chrome trace
+    holds its host spans (and the wideband receiver's) as CPU ranges, and
+    the frames are those of the run without it."""
+    if feed == "channels":
+        argv, iq = ["--block", "1"], four[1]
+        want = {"opv.append", "opv.launch", "opv.resolve",
+                "opv.resolve.wait", "opv.resolve.emit", "opv.slide"}
+    else:
+        argv, iq = ["--wideband", str(wideband4[0])], wideband4[1]
+        want = {"opv.wideband.append", "opv.wideband.channelize",
+                "opv.wideband.slide", "opv.launch", "opv.resolve"}
+    rc, out, _ = _demod(["-r", "-q"] + argv
+                        + ["--profile", str(tmp_path / "prof")], iq)
+    rc0, out0, _ = _demod(["-r", "-q"] + argv, iq)
+    trace = json.loads((tmp_path / "prof" / "opv_demod_trace.json").read_text())
+    spans = [e for e in trace["traceEvents"]
+             if str(e.get("name", "")).startswith("opv.")]
+    assert rc == rc0 == 0 and out == out0
+    assert want <= {e["name"] for e in spans}
+    assert {e.get("cat") for e in spans} == {"cpu_op"}
+
+
 def test_help_and_empty_input():
     rc, out, err = run_main(opv_demod.main, ["-h"])
     assert rc == 0 and "--channels" in err and out == b""

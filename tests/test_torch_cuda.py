@@ -878,3 +878,68 @@ def test_pluto_rx_script_on_card(cuda_dev, iio_stubs):
     assert r.returncode == 0, r.stderr[-500:]
     assert "Summary: 3 frames (3 perfect, 0 errors)" in r.stderr
     assert "altvoltage0 frequency 435000000" in (tmp / "attr.log").read_text()
+
+
+def _programs_read(records, names=("steady", "reacquire", "retime")):
+    return sum(len(r["device_ms"].get(n, ())) for r in records for n in names)
+
+
+def test_timing_event_pairs_on_card(cuda_dev):
+    """The timing engine on the card (pipelined, the 4-channel impaired
+    feed): the tuples of the engine without timing; every program launched
+    for a block has its event pair read by the last record (a pair is read
+    once its end event has completed, the flushed tail's included), one
+    operands pair inside each steady program and shorter than it; the
+    predicted launches and the records run under the sync-debug check
+    (tracing never synchronizes)."""
+    from chip_smoke import sync_checked
+    x, _ = _signal(20, (0, 488, 976))
+    feed, _ = impaired_feed(x.to(cuda_dev), cuda_dev)
+    quiet = _windowed(LockedStreamDemodulator(4, block_frames=4,
+                                              pipeline=True, device=cuda_dev),
+                      feed)
+    sd = LockedStreamDemodulator(4, block_frames=4, pipeline=True,
+                                 timing=True, device=cuda_dev)
+    checked = [0]
+    sync_checked(sd, "_launch_predicted", checked)
+    sync_checked(sd._rec, "block", checked)
+    same_stream(_windowed(sd, feed), quiet, "timing vs without")
+    rows = sd.block_trace
+    assert checked[0] > len(rows) and len(rows) == len(sd.block_stats)
+    assert _programs_read(rows) == sum(r["programs"] for r in rows)
+    steady = [ms for r in rows for ms in r["device_ms"].get("steady", ())]
+    operands = [ms for r in rows for ms in r["device_ms"].get("operands", ())]
+    assert steady and len(operands) == len(steady)
+    assert all(0 < ms for ms in steady + operands)
+    assert sum(operands) < sum(steady)
+    assert {r["launch"] for r in rows} >= {"exact", "kept"}
+
+
+def test_timing_spans_have_no_device_mirror(cuda_dev):
+    """A CUDA profiler trace of a timing wideband receiver holds the spans
+    as host ranges only: no device event is named opv.*, and the host
+    ranges are there; the channelizer's pair is read in the records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from opv_tpu_torch.stream import WidebandReceiver
+    x, _ = wideband_k4()
+    wb = WidebandReceiver(4, block_frames=2, pipeline=True, timing=True,
+                          device=cuda_dev)
+    q = wb.quantum
+    xs = x.to(cuda_dev)
+    wb.feed(xs[:wb.window])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for off in range(wb.window, xs.shape[0] - q + 1, q):
+            wb.feed(xs[off:off + q])
+        torch.cuda.synchronize()
+    wb.flush()
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [e.name() for e in events
+               if e.device_type() == DeviceType.CUDA]
+    on_host = {e.name() for e in events if e.device_type() == DeviceType.CPU}
+    assert on_card and not [n for n in on_card if n.startswith("opv.")]
+    assert {"opv.wideband.channelize", "opv.launch", "opv.resolve"} <= on_host
+    chans = [ms for r in wb.demod.block_trace
+             for ms in r["device_ms"].get("channelize", ())]
+    assert chans and all(ms > 0 for ms in chans)
