@@ -94,8 +94,11 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
               channelizer + locked engine) on wideband-64: 64 channels x 12
               frames of their own stations at one digitizer rate, channel c
               from sample 2000 + 487 c, synthesized on the card (~69 M
-              samples).  (a) channelize over one quantum, card against
-              cpu, its ms and bound; (b) synchronous float32, block_frames
+              samples).  (a) channelize over the benchmark's 8-frame
+              quantum: the kernel (one launch) against the cpu within
+              1e-5 and against the plain twin on the card (elements
+              unequal, float32 ulps apart), its ms and the twin's, its
+              bound; (b) synchronous float32, block_frames
               4: fed a window, quanta, then flushed; its tuples against the
               same receiver on the cpu, and against the transmitted frames
               (each once at most, byte-exact, on its channel, one 86,720
@@ -377,6 +380,8 @@ REAL_TIME_MSPS = 2.168        # one channel's sample rate, Msamples/s
 #: per channel, channel c's lead WB_LEAD + WB_LEAD_STEP c channel samples
 WB_K = 64
 WB_BF = 4
+#: (a): the quantum of the benchmark's wideband-64 configuration (--block 8)
+WB_CHAN_BF = 8
 WB_FRAMES = 12
 WB_LEAD = 2000
 WB_LEAD_STEP = 487
@@ -2086,6 +2091,25 @@ def same_wideband(got, want, frames, what: str) -> dict:
     return dict(garbage_differing=diff, garbage_max_dq=dq)
 
 
+def ulps_apart(got, want):
+    """Per real component, |got - want| in float32 ulps of the larger
+    magnitude (complex64 tensors on one device) -> float64 tensor."""
+    import torch
+    g = torch.view_as_real(got).reshape(-1)
+    w = torch.view_as_real(want).reshape(-1)
+    big = torch.maximum(g.abs(), w.abs())
+    ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    return (g.double() - w.double()).abs() / ulp.double()
+
+
+def channelize_held(got, want) -> dict:
+    """The channelizer kernel's (K, M) output against the twin's: elements
+    (complex) not equal, their count, and the most float32 ulps apart of a
+    real component."""
+    return dict(unequal=int((got != want).sum()), elements=want.numel(),
+                max_ulps=float(ulps_apart(got, want).max()))
+
+
 def channelize_bound(n_in: int, k: int, m: int, taps: int = 12):
     """(bound ms, what bounds it, bytes) of one channelize call
     (wideband_bench.channelize_work)."""
@@ -2186,6 +2210,7 @@ def phase_wideband(dev, card):
     import torch
     from opv_tpu_torch.cli import opv_demod
     from opv_tpu_torch.ops import registry
+    from opv_tpu_torch.ops.channelize import channelize_reference
     from opv_tpu_torch.rx.channelizer import channelize
     from opv_tpu_torch.stream import WidebandReceiver
     cpu = torch.device("cpu")
@@ -2199,29 +2224,42 @@ def phase_wideband(dev, card):
         f"{time.perf_counter() - t_phase:.1f} s; {n_sent} frames, channel c "
         f"from sample {WB_LEAD} + {WB_LEAD_STEP} c")
     res = {}
-    # (a) the channelizer over one quantum: card against CPU, ms, bound
-    rx = WidebandReceiver(WB_K, block_frames=WB_BF, device=dev)
+    # (a) the channelizer over the benchmark's quantum: the kernel against
+    # the CPU and the plain twin on the card; ms of both, bound
+    rx = WidebandReceiver(WB_K, block_frames=WB_CHAN_BF, device=dev)
     win = x[: rx.window]
+    registry.reset_launch_counts()
     y = channelize(win, WB_K)
+    launches = registry.launch_counts()["channelize"]
+    if launches != 1:
+        raise AssertionError(f"channelize: {launches} kernel launches a call")
     y_cpu = channelize(win.cpu(), WB_K)
     err = float((y.cpu() - y_cpu).abs().max())
     ref = float(y_cpu.abs().max())
+    del y_cpu
     if not err <= WB_Y_RTOL * ref:
         raise AssertionError(f"channelize card vs cpu: {err:.4g} > "
                              f"{WB_Y_RTOL} x {ref:.4g}")
+    held = channelize_held(y, channelize_reference(win, WB_K))
     ms = cuda_ms(lambda: channelize(win, WB_K), WB_CHAN_REPS)
+    plain_ms = cuda_ms(lambda: channelize_reference(win, WB_K), WB_CHAN_REPS)
     m = y.shape[1]
     bound_ms, bound_by, nbytes = channelize_bound(win.shape[0], WB_K, m)
-    del y, y_cpu
-    res["channelize"] = dict(ms=ms, max_abs_err=err, max_rel_err=err / ref,
+    del y
+    res["channelize"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                             max_rel_err=err / ref, twin_on_card=held,
                              bound_ms=bound_ms, bound_by=bound_by,
+                             roofline_pct=100 * bound_ms / ms,
                              input_samples=win.shape[0], output=[WB_K, m],
                              ms_air=m / REAL_TIME_MSPS / 1e3)
     log(f"[wideband] (a) channelize {win.shape[0]} samples -> ({WB_K}, {m}) "
         f"on the card against the cpu: max |card - cpu| {err:.4g} of "
-        f"max|y| {ref:.4g} (rel {err / ref:.3g}); {ms:.3f} ms per quantum "
-        f"({m / REAL_TIME_MSPS / 1e3:.1f} ms of air), bound {bound_ms:.4f} "
-        f"ms ({bound_by}, {nbytes / 1e6:.0f} MB) ({card})")
+        f"max|y| {ref:.4g} (rel {err / ref:.3g}); against the twin on the "
+        f"card {held['unequal']} of {held['elements']} unequal, at most "
+        f"{held['max_ulps']:.3g} ulp; {ms:.4f} ms per quantum "
+        f"({m / REAL_TIME_MSPS / 1e3:.1f} ms of air; the twin "
+        f"{plain_ms:.3f}), bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{nbytes / 1e6:.0f} MB): {100 * bound_ms / ms:.1f}% ({card})")
     # (b)-(e): the counted runs of the phase
     registry.set_viterbi_radix(4)
     registry.reset_launch_counts()

@@ -68,6 +68,7 @@ SIGNATURES = {
                                      ctypes.POINTER(ctypes.c_double),
                                      ctypes.POINTER(_I), ctypes.c_uint,
                                      *[_P] * 12], _I),
+    "opv_channelize": ([_P, _I, _I, ctypes.c_longlong, _P, _P, _P, _P], _I),
     "opv_error_string": ([_I], ctypes.c_char_p),
 }
 

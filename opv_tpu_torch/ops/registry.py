@@ -13,6 +13,7 @@ import os
 
 import torch
 
+from opv_tpu_torch.ops import channelize as _chan
 from opv_tpu_torch.ops import phase_track as _phase
 from opv_tpu_torch.ops import symbol_soft as _soft
 from opv_tpu_torch.ops import sync_scan as _sync
@@ -89,6 +90,15 @@ def sync_correlate_scan(soft_ext, valid, ints, sync_q):
     return _sync.sync_correlate_scan_reference(soft_ext, valid, ints, sync_q)
 
 
+def channelize(x, k: int, taps: int):
+    """The polyphase channelizer (ops/channelize.py contract) -> (K, M)
+    channels.  complex128 input runs the twin on any device: the kernel's
+    legs are float32."""
+    if _route(x) == "cuda" and x.dtype == torch.complex64:
+        return _chan.channelize_cuda(x, k, taps)
+    return _chan.channelize_reference(x, k, taps)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset (the soft stage
     once per row type, the sync machine once per input and precision, the
@@ -102,13 +112,15 @@ def launch_counts() -> dict[str, int]:
             **{"track_symbols" if dt == "float64" else f"track_symbols[{dt}]": n
                for dt, n in _track.track_symbols_cuda.launches.items()},
             **{f"sync_scan[{src}]": n
-               for src, n in _sync.sync_scan_cuda.launches.items()}}
+               for src, n in _sync.sync_scan_cuda.launches.items()},
+            "channelize": _chan.channelize_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     _vit.viterbi_r4_cuda.launches = 0
     _vit.viterbi_r2_cuda.launches = 0
     _phase.phase_track_cuda.launches = 0
+    _chan.channelize_cuda.launches = 0
     for dt in _track.track_symbols_cuda.launches:
         _track.track_symbols_cuda.launches[dt] = 0
     for rows in _soft.symbol_soft_cuda.launches:

@@ -18,7 +18,10 @@ non-coherent OPV demodulator ignores.
 Plain torch on the input's device and dtype (float32 legs for complex64);
 the JAX package computes the same outside any Pallas kernel.  The DFT
 product accumulates in float64 and rounds once to the input's precision,
-so the card and the host give the same channels (channelize_cols).
+so the card and the host give the same channels (channelize_cols).  On the
+card, channelize() of complex64 input is one hand-written kernel
+(csrc/channelize.cu) with the same legs and product; these functions are
+its twin, and the mesh receiver's per-shard path.
 
 msk_wideband, wideband_test_channels and synthesize_wideband are the
 simulation helpers of the channelizer tests and of chip_smoke.py, built on
@@ -132,9 +135,11 @@ def channelize(x: torch.Tensor, k: int,
                taps_per_branch: int = 12) -> torch.Tensor:
     """(N,) complex wideband at K*fs_ch -> (K, M) complex channel
     basebands at fs_ch, on x's device (the module docstring has the
-    formulation)."""
-    kern = _on_device("dft", k, taps_per_branch, x.device, _real_dtype(x))
-    return channelize_cols(x, kern, k, taps_per_branch)
+    formulation).  A CUDA complex64 tensor runs the fused kernel
+    (ops/channelize.py), one launch; the CPU and complex128 run
+    channelize_cols with the whole dft_kernel."""
+    from opv_tpu_torch.ops import registry
+    return registry.channelize(x, k, taps_per_branch)
 
 
 def msk_wideband(frames_u8, k: int, device="cuda") -> torch.Tensor:

@@ -149,3 +149,61 @@ def test_complex128_input_runs_in_float64():
     assert y.dtype == torch.complex128
     want = np.asarray(J.channelize(jnp.asarray(x), k))
     assert np.abs(y.numpy() - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_channelize_routes_the_cpu_to_the_twin(monkeypatch):
+    """CPU tensors, complex64 and complex128, run the plain twin through
+    registry.channelize: the kernel's wrapper is never reached."""
+    from opv_tpu_torch.ops import channelize as C
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("the kernel's wrapper was called")
+
+    monkeypatch.setattr(C, "channelize_cuda", no_kernel)
+    rng = np.random.default_rng(5)
+    n = 8 * 12 * 20 + 5
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    for dt in (torch.complex64, torch.complex128):
+        xt = torch.from_numpy(x).to(dt)
+        want = T.channelize_cols(xt, T.dft_kernel(8), 8)
+        got = T.channelize(xt, 8)
+        assert got.dtype == dt and torch.equal(got, want)
+
+
+def test_channelize_kernel_wrapper_raises_before_the_library(monkeypatch):
+    """With the device check faked, the kernel's wrapper refuses complex128,
+    non-contiguous, 2-D and too-short input before it builds or loads the
+    library; registry.launch_counts() names the kernel and counts none."""
+    from opv_tpu_torch.ops import build, registry
+    from opv_tpu_torch.ops import channelize as C
+
+    def no_library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(C, "_on_card", lambda t: True)
+    monkeypatch.setattr(build, "library", no_library)
+    registry.reset_launch_counts()
+    x = torch.zeros(4 * 12 * 10, dtype=torch.complex64)
+    for bad, what in ((x.to(torch.complex128), "complex128"),
+                      (x[::2], "contiguous"),
+                      (x.reshape(2, -1), "contiguous"),
+                      (x[: 4 * 12 - 1], "fewer")):
+        with pytest.raises(ValueError, match=what):
+            C.channelize_cuda(bad, 4, 12)
+    with pytest.raises(ValueError, match="k >= 1"):
+        C.channelize_cuda(x, 0, 12)
+    assert registry.launch_counts()["channelize"] == 0
+
+
+@pytest.mark.parametrize("k", [1, 3, 64])
+def test_channelize_kernel_operand_is_the_twins_kernel(k):
+    """The kernel's (wr, wi) pairs are dft_kernel(k)'s re-leg rows rounded
+    to float32 as the twin rounds them, and the im-leg rows are their exact
+    negation (-wi, wr)."""
+    from opv_tpu_torch.ops.channelize import _dft_pairs
+    kern = torch.from_numpy(T.dft_kernel(k)).to(torch.float32)
+    pairs = _dft_pairs(k, torch.device("cpu"))
+    assert pairs.shape == (k, k, 2) and pairs.is_contiguous()
+    assert torch.equal(pairs, kern[0::2])
+    assert torch.equal(kern[1::2], torch.stack([-pairs[..., 1],
+                                                pairs[..., 0]], -1))

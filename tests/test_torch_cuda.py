@@ -16,7 +16,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (COHERENT_RTOL, COHERENT_SYMBOLS,  # noqa: E402
-                        MODES_WEAK_GAIN, PHASE_INCS, PHASE_OTHER_N,
+                        channelize_held, MODES_WEAK_GAIN, PHASE_INCS, PHASE_OTHER_N,
                         PHASE_STARTS, capture, dense_blocks, dense_host,
                         drive_wideband, golden, golden_frames,
                         hold_stream_kernels,
@@ -442,6 +442,50 @@ def test_channelize_on_card_matches_cpu(cuda_dev, k):
     got = channelize(x.to(cuda_dev), k)
     assert got.is_cuda and got.shape == want.shape and got.is_contiguous()
     assert float((got.cpu() - want).abs().max()) <= RTOL * float(want.abs().max())
+
+
+#: the channelizer kernel against the twin on the card: the elements that
+#: may differ, by one float32 ulp at most.  Both sum the same exact float64
+#: products; another order could round a sum that lies within its float64
+#: error of a float32 tie the other way (small K, whose kernel values 0 and
+#: +-1 make sums of float32 legs that are ties, most often).  On an H100 the
+#: kernel and cuBLAS' float64 GEMM gave equal channels at every K and taps
+#: tested here and at the benchmark's 8-frame quantum.
+CHAN_UNEQUAL = 8
+
+
+@pytest.mark.parametrize("taps", [8, 12])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_channelize_kernel_matches_twin(cuda_dev, k, taps):
+    """The channelizer kernel against the plain twin on the card, one
+    launch a call: a length no multiple of the 64-row tile or of K, a
+    one-row output, and a window that starts with the zero filter history
+    as WidebandReceiver builds it.  All but a few elements equal, none more
+    than one float32 ulp apart."""
+    from opv_tpu_torch.ops.channelize import channelize_reference
+    from opv_tpu_torch.rx.channelizer import channelize
+    rng = np.random.default_rng(1000 * k + taps)
+
+    def noise(n):
+        return torch.from_numpy(((rng.standard_normal(n)
+                                  + 1j * rng.standard_normal(n))
+                                 * 8000).astype(np.complex64)).to(cuda_dev)
+
+    hist = k * taps - 1
+    cases = {"ragged": noise(k * taps + k * (3 * 64 + 5) + 3),
+             "one row": noise(k * taps + k - 1),
+             "history": torch.cat([torch.zeros(hist, dtype=torch.complex64,
+                                               device=cuda_dev),
+                                   noise(k * 64 * 5 + 1)])}
+    for name, x in cases.items():
+        registry.reset_launch_counts()
+        got = channelize(x, k, taps)
+        assert registry.launch_counts()["channelize"] == 1, name
+        want = channelize_reference(x, k, taps)
+        assert got.shape == want.shape and got.is_contiguous(), name
+        held = channelize_held(got, want)
+        assert held["max_ulps"] <= 1.0, (name, held)
+        assert held["unequal"] <= CHAN_UNEQUAL, (name, held)
 
 
 def test_wideband_receiver_on_card_matches_cpu(cuda_dev):
